@@ -8,6 +8,10 @@ Builds the hand-written kernels of ``seabreeze_param_tpu_torch/csrc`` with
 the port's ``diag`` against the loop-faithful NumPy oracle on a small
 world, then drives ``diag`` once at global 0.25 degrees (721 x 1440, 4
 levels, 32 steps, moving polar sea ice) and holds it against the plain path.
+Then the per-step paths, each against its plain version: the coupling API
+(``CoupledTrigger``, kernel B4, with B5 alone on the same steps), the fused
+distance (``distance_impl='fused'``, kernel B3) and the dummy model.  Each
+path's launch counts are zeroed just before it runs and read just after.
 Any failed check raises, so the exit code is non-zero.
 
 Output: a line with the card's name and power limit (``nvidia-smi``), one
@@ -18,6 +22,7 @@ it exits non-zero and prints no result.  Imports nothing of JAX.
 """
 from __future__ import annotations
 
+import functools
 import json
 import subprocess
 import sys
@@ -27,6 +32,9 @@ import numpy as np
 
 MISSING = np.float32(2.0e20)
 BIG = np.float32(1.0e30)
+#: The coupled phases' 8 steps of the main world: its ice edge moves at
+#: steps 8, 16 and 24.
+COUPLED_STEPS = tuple(range(0, 32, 4))
 
 
 def log(msg):
@@ -248,10 +256,11 @@ def phase_golden():
         f"oracle (sb mismatch {int(mism.sum())}/{mism.size})")
 
 
+@functools.cache
 def main_world(T=32, nlev=4):
     """The main path's world: ``(grid, (lsm, z, std, pres, theta, u, v,
     ci))`` at global 0.25 deg, with a polar ice edge that moves one row
-    every 8 steps, so the coastline changes along the scan."""
+    every 8 steps, so the coastline changes along the scan.  Built once."""
     from bench import make_world
     grid, _, _ = world_grid("global025")
     lsm, z, std, pres, theta, u, v, ci = make_world(grid.nlat, grid.nlon,
@@ -285,8 +294,7 @@ def phase_main(out):
         return r, time.perf_counter() - t0
 
     run()                                   # warm-up
-    pass2_min_cuda.launches = 0
-    ring_trigger_cuda_stacked.launches = 0
+    zero_launches()
     kern, secs = run()
     launches = {"pass2_min": pass2_min_cuda.launches,
                 "ring_trigger": ring_trigger_cuda_stacked.launches}
@@ -342,6 +350,323 @@ def phase_main(out):
                resident_ms_per_step=resident)
 
 
+def kernel_wrappers():
+    """Name -> wrapper (whose ``launches`` counts its kernel) of every
+    kernel of the port."""
+    from seabreeze_param_tpu_torch.ops.cuda.distance_kernel import (
+        min_haversine_param_cuda, pass2_min_cuda)
+    from seabreeze_param_tpu_torch.ops.cuda.ring_kernel import (
+        ring_thc_cuda_padded, ring_trigger_cuda_padded,
+        ring_trigger_cuda_stacked)
+    return {"pass2_min": pass2_min_cuda,
+            "ring_trigger_stacked": ring_trigger_cuda_stacked,
+            "min_haversine": min_haversine_param_cuda,
+            "ring_trigger_padded": ring_trigger_cuda_padded,
+            "ring_thc": ring_thc_cuda_padded}
+
+
+def zero_launches():
+    for fn in kernel_wrappers().values():
+        fn.launches = 0
+
+
+def read_launches():
+    return {name: fn.launches for name, fn in kernel_wrappers().items()}
+
+
+def bit_equal(got, ref, what):
+    """Raise unless the tensors are equal bit for bit; return max |diff|."""
+    import torch
+    err = float((got.double() - ref.double()).abs().max())
+    if not torch.equal(got, ref):
+        raise AssertionError(f"{what}: not bit-equal, max |diff| {err}")
+    return err
+
+
+def phase_padded(name, out):
+    """Kernels B3, B4 (tt = 1, 5, 15) and B5 alone against their plain
+    versions on one step of a real world, bit for bit, with times."""
+    import torch
+    from bench import GRIDS, make_world
+    from seabreeze_param_tpu_torch.core.params import Params
+    from seabreeze_param_tpu_torch.models.pipeline import TriggerPipeline
+    from seabreeze_param_tpu_torch.ops.coastline import get_edges
+    from seabreeze_param_tpu_torch.ops.cuda.distance_kernel import (
+        min_haversine_param_cuda, pass2_min_cuda)
+    from seabreeze_param_tpu_torch.ops.cuda.ring_kernel import (
+        ring_thc_cuda_padded, ring_trigger_cuda_padded)
+    from seabreeze_param_tpu_torch.ops.distance import (
+        device_tables, min_haversine_param_from_padded, pad_coast,
+        pass1_extrema)
+    from seabreeze_param_tpu_torch.ops.ring_search import (
+        ring_quantities, ring_thc_from_padded)
+    from seabreeze_param_tpu_torch.ops.trigger import (cadence, prepare_step,
+                                                       trigger_cells)
+
+    grid, _, _ = world_grid(name)
+    nlat, nlon = GRIDS[name]
+    dev = torch.device("cuda")
+    world = make_world(nlat, nlon, 4, 1, seed=3)
+    lsm, z, std, pres, theta, u, v, ci = (torch.as_tensor(a, device=dev)
+                                          for a in world)
+    params = Params()
+    pipe = TriggerPipeline(grid, device=dev)
+    k, nn = pipe.k, pipe.nn_max
+    res = {}
+
+    # B3: both passes fused, against its plain version and the hybrid
+    tabs = device_tables(grid, k, dev)
+    cpad = pad_coast(get_edges(lsm, ci[0]), k)
+    err = bit_equal(min_haversine_param_cuda(cpad, *tabs, k),
+                    min_haversine_param_from_padded(cpad, *tabs, k),
+                    f"B3 {name}")
+    res["min_haversine"] = dict(
+        max_abs_err=err,
+        ms=cuda_ms(lambda: min_haversine_param_cuda(cpad, *tabs, k)),
+        plain_ms=cuda_ms(
+            lambda: min_haversine_param_from_padded(cpad, *tabs, k)),
+        hybrid_ms=cuda_ms(lambda: pass2_min_cuda(
+            pass1_extrema(cpad, tabs[2], k), tabs[0], tabs[1], k)))
+
+    # B4 at seeding, a plain step and a refresh; B5 on the same step
+    cd = pipe.distance_field(lsm, ci[0])
+    _, ws_new, wd_new, t0_pad, cd_pad = prepare_step(
+        theta[0], u[0], v[0], cd, z, std, pres, params, nn)
+    rng = np.random.default_rng(1)
+    ws0 = torch.as_tensor((5 + rng.random((nlat, nlon))).astype(np.float32),
+                          device=dev)
+    wd0 = torch.as_tensor(
+        (360 * rng.random((nlat, nlon)) - 180).astype(np.float32), device=dev)
+    err = 0.0
+    for tt in (1, 5, 15):
+        flags = cadence(tt, params)
+        b4_args = (t0_pad, cd_pad, cd, ws_new, wd_new, ws0, wd0, *flags,
+                   params, nn)
+        got = ring_trigger_cuda_padded(*b4_args)
+        ref = trigger_cells(cd, ws_new, wd_new, ws0, wd0, t0_pad, cd_pad,
+                            *flags, params, nn)
+        for g, r, f in zip(got, (ref[0], ref[3], ref[4]), ("sb", "ws", "wd")):
+            err = max(err, bit_equal(g, r, f"B4 {name} tt={tt} {f}"))
+    res["ring_trigger_padded"] = dict(
+        max_abs_err=err, ms=cuda_ms(lambda: ring_trigger_cuda_padded(
+            *b4_args)),
+        plain_ms=cuda_ms(lambda: trigger_cells(
+            cd, ws_new, wd_new, ws0, wd0, t0_pad, cd_pad, *flags, params,
+            nn)))
+
+    coastal = cd.abs() <= float(np.float32(params.maxdist))
+    mul = torch.where(cd >= 0, 1.0, -1.0)
+
+    def b5_plain():
+        return ring_thc_from_padded(ring_quantities(t0_pad, cd_pad), mul, nn,
+                                    coastal=coastal)[0]
+
+    err = bit_equal(ring_thc_cuda_padded(t0_pad, cd_pad, cd, nn), b5_plain(),
+                    f"B5 {name}")
+    res["ring_thc"] = dict(
+        max_abs_err=err,
+        ms=cuda_ms(lambda: ring_thc_cuda_padded(t0_pad, cd_pad, cd, nn)),
+        plain_ms=cuda_ms(b5_plain))
+    log(f"# B3/B4/B5 {name} k={k} NN={nn}: bit-equal to plain (B4 at "
+        f"tt=1/5/15); ms kernel vs plain: " + "; ".join(
+            f"{n} {m['ms']:.4f} vs {m['plain_ms']:.4f}"
+            for n, m in res.items())
+        + f"; hybrid distance {res['min_haversine']['hybrid_ms']:.4f}")
+    out[name] = res
+
+
+def coupled_inputs(dev):
+    """The coupled phases' inputs on the card: the main world's 8
+    :data:`COUPLED_STEPS` and a 3-D pressure on its 4 levels, perturbed
+    per column so the nearest level differs across the grid."""
+    import torch
+    grid, (lsm, z, std, pres, theta, u, v, ci) = main_world()
+    sel = list(COUPLED_STEPS)
+    rng = np.random.default_rng(5)
+    p3 = (pres[:, None, None] * (1.0 + 0.3 * rng.random(
+        (1,) + lsm.shape))).astype(np.float32)
+    d = {k: torch.as_tensor(a, device=dev) for k, a in dict(
+        lsm=lsm, z=z, std=std, pres=pres, p3=p3, theta=theta[sel],
+        u=u[sel], v=v[sel], ci=ci[sel]).items()}
+    return grid, d
+
+
+def final_fields(state):
+    return {"thc": state.thc.cpu(), "windspeed": state.windspeed.cpu(),
+            "winddir": state.winddir.cpu()}
+
+
+def phase_coupling(out):
+    """The per-step coupling path at global 0.25 deg: 8 steps of
+    ``CoupledTrigger.prepare_mask`` + ``physics`` (3-D pressure, moving
+    ice), kernel path against ``use_kernels=False``.  Then B5 on the same
+    steps, the ring search alone, held to the trigger rule."""
+    import torch
+    from seabreeze_param_tpu_torch.core.params import Params
+    from seabreeze_param_tpu_torch.core.state import TriggerState
+    from seabreeze_param_tpu_torch.coupling import CoupledTrigger
+    from seabreeze_param_tpu_torch.ops.cuda.ring_kernel import (
+        ring_thc_cuda_padded)
+    from seabreeze_param_tpu_torch.ops.trigger import prepare_step
+
+    dev = torch.device("cuda")
+    grid, d = coupled_inputs(dev)
+    nlat, nlon = grid.shape
+    S = len(COUPLED_STEPS)
+
+    def drive(uk):
+        ct = CoupledTrigger(grid, use_kernels=uk, device=dev)
+        state = TriggerState.zeros((nlat, nlon), dev)
+        outs, masks = [], []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for s in range(S):
+            cd = ct.prepare_mask(d["lsm"], d["ci"][s])
+            state, o = ct.physics(state, d["p3"], d["u"][s], d["v"][s],
+                                  d["theta"][s], d["z"], d["std"], cd)
+            outs.append(o)
+            masks.append(cd)
+        torch.cuda.synchronize()
+        return state, outs, masks, (time.perf_counter() - t0) / S * 1e3
+
+    drive(None)                                 # warm-up
+    zero_launches()
+    kstate, kouts, masks, kms = drive(None)
+    launches = read_launches()
+    if launches["ring_trigger_padded"] != S or launches["pass2_min"] != S:
+        raise AssertionError(f"coupling launches {launches}, want B4 and "
+                             f"B2 {S} times each")
+    pstate, pouts, _, pms = drive(False)
+    if read_launches() != launches:
+        raise AssertionError("coupling: the plain path launched a kernel")
+    worst = 0.0
+    for s, (ko, po) in enumerate(zip(kouts, pouts)):
+        worst = max(worst, check_fields(
+            {k: o.cpu() for k, o in ko.items()},
+            {k: o.cpu() for k, o in po.items()}, f"coupling step {s}"))
+    check_fields(final_fields(kstate), final_fields(pstate),
+                 "coupling final state", bit_state=("windspeed", "winddir"))
+    sb = torch.stack([o["sb_con"] for o in kouts])
+    if sb.shape != (S, nlat, nlon) or not torch.isfinite(sb).all():
+        raise AssertionError("coupling: sb_con shape or finiteness")
+    trig = (sb != float(MISSING)) & (sb != 0)
+
+    # B5 on the coupled steps: the ring search alone, as a diagnostic.  A
+    # cell triggers only where |n_thc| > thresh_thc, and n_thc is zero off
+    # the coastal band.
+    params = Params()
+    nn = CoupledTrigger(grid, device=dev).pipeline().nn_max
+    pads = [prepare_step(d["theta"][s], d["u"][s], d["v"][s], masks[s],
+                         d["z"], d["std"], d["p3"], params, nn)[3:]
+            for s in range(S)]
+    zero_launches()
+    n_thc = torch.stack([ring_thc_cuda_padded(*pads[s], masks[s], nn)
+                         for s in range(S)])
+    b5 = read_launches()["ring_thc"]
+    if b5 != S:
+        raise AssertionError(f"ring_thc launched {b5} times, want {S}")
+    band = torch.stack(masks).abs() <= float(np.float32(params.maxdist))
+    if (n_thc[~band] != 0).any() or not torch.isfinite(n_thc).all():
+        raise AssertionError("B5: n_thc nonzero off the band or not finite")
+    if (n_thc[trig].abs() <= float(np.float32(params.thresh_thc))).any():
+        raise AssertionError("B5: a triggered cell has |n_thc| <= thresh")
+    log(f"# coupling global025 ({nlat}x{nlon}, 3-D pressure on 4 levels, "
+        f"{S} steps, moving ice): prepare_mask + physics kernel path "
+        f"{kms:.3f} ms/step, plain path {pms:.3f} ms/step; launches "
+        f"{launches}; matches plain (step max |diff| {worst:.3g}, final "
+        f"ws/wd bit-equal); {int(trig.sum())} triggers; B5 over the same "
+        f"steps: {b5} launches, zero off the band, |n_thc| > thresh at "
+        f"every trigger")
+    out.update(launches=launches, b5_launches=b5, ms_per_step=kms,
+               plain_ms_per_step=pms)
+
+
+def phase_fused(out):
+    """``TriggerPipeline(distance_impl='fused').run`` (B3 + B1) for the 8
+    coupled steps against the default pipeline (B2 + B1)."""
+    import torch
+    from seabreeze_param_tpu_torch.core.state import TriggerState
+    from seabreeze_param_tpu_torch.models.pipeline import TriggerPipeline
+
+    dev = torch.device("cuda")
+    grid, d = coupled_inputs(dev)
+    nlat, nlon = grid.shape
+    S = len(COUPLED_STEPS)
+    fused = TriggerPipeline(grid, device=dev, distance_impl="fused")
+    default = TriggerPipeline(grid, device=dev)
+    bit_equal(fused.distance_field(d["lsm"], d["ci"][0]),
+              default.distance_field(d["lsm"], d["ci"][0]),
+              "fused distance, first step")
+
+    def run(pipe):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = pipe.run(TriggerState.zeros((nlat, nlon), dev), d["theta"],
+                     d["u"], d["v"], d["lsm"], d["z"], d["std"], d["pres"],
+                     ci_t=d["ci"])
+        torch.cuda.synchronize()
+        return r, (time.perf_counter() - t0) / S * 1e3
+
+    run(fused)                                  # warm-up
+    zero_launches()
+    (fstate, fouts), fms = run(fused)
+    launches = read_launches()
+    if (launches["min_haversine"] != S
+            or launches["ring_trigger_stacked"] != S
+            or launches["pass2_min"] != 0):
+        raise AssertionError(f"fused launches {launches}, want B3 and B1 "
+                             f"{S} times each, B2 none")
+    (dstate, douts), dms = run(default)
+    worst = check_fields({k: o.cpu() for k, o in fouts.items()},
+                         {k: o.cpu() for k, o in douts.items()},
+                         "fused run per-step outputs")
+    check_fields(final_fields(fstate), final_fields(dstate),
+                 "fused run final state", bit_state=("windspeed", "winddir"))
+    log(f"# fused distance global025 ({S} steps, moving ice): first cdist "
+        f"bit-equal to the default pipeline's; run ms/step fused (B3+B1) "
+        f"{fms:.3f}, default (B2+B1) {dms:.3f}; launches {launches}; "
+        f"outputs match (max |diff| {worst:.3g}, final ws/wd bit-equal)")
+    out.update(launches=launches, ms_per_step=fms,
+               default_ms_per_step=dms)
+
+
+def phase_dummy(out):
+    """The port's dummy model, 12 coupled steps on the card, kernel path
+    against plain."""
+    import torch
+    from seabreeze_param_tpu_torch.examples import dummy_model
+
+    steps = 12
+    dummy_model.run(steps=2)                    # warm-up
+    zero_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    kfin, ksb = dummy_model.run(steps=steps)
+    torch.cuda.synchronize()
+    kms = (time.perf_counter() - t0) / steps * 1e3
+    launches = read_launches()
+    if (launches["ring_trigger_padded"] != steps
+            or launches["pass2_min"] != steps):
+        raise AssertionError(f"dummy model launches {launches}")
+    pfin, psb = dummy_model.run(steps=steps, use_kernels=False)
+    shape = (steps, dummy_model.NY, dummy_model.NX)
+    if ksb.shape != shape or not torch.isfinite(ksb).all():
+        raise AssertionError("dummy model: sb_con shape or finiteness")
+    worst = check_fields({"sb_con": ksb.cpu()}, {"sb_con": psb.cpu()},
+                         "dummy model sb_con")
+    check_fields(final_fields(kfin), final_fields(pfin),
+                 "dummy model final state",
+                 bit_state=("windspeed", "winddir"))
+    if kfin.tt != steps + 1:
+        raise AssertionError(f"dummy model: tt {kfin.tt}")
+    active = ksb[ksb < 1.0e19]
+    log(f"# dummy model ({dummy_model.NY}x{dummy_model.NX}, {steps} steps): "
+        f"kernel path {kms:.3f} ms/step; launches {launches}; matches plain "
+        f"(max |diff| {worst:.3g}, final ws/wd bit-equal); "
+        f"{int((active != 0).sum())} active triggers")
+    out.update(launches=launches, ms_per_step=kms)
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -357,28 +682,46 @@ def main():
     log(f"# torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)}")
 
-    b2, b1, main_out = {}, {}, {}
+    b2, b1, padded, main_out = {}, {}, {}, {}
+    coupling, fused, dummy = {}, {}, {}
     phase_build()
     for name in ("global025", "global010"):
         phase_pass2(name, b2)
         phase_ring(name, b1)
+        phase_padded(name, padded)
     phase_golden()
     phase_main(main_out)
+    phase_coupling(coupling)
+    phase_fused(fused)
+    phase_dummy(dummy)
 
-    launches = main_out["launches"]
+    def per_kernel(name):
+        return {g: padded[g][name] for g in padded}
+
+    src = "seabreeze_param_tpu_torch/csrc/"
+    pal = "seabreeze_param_tpu/ops/pallas/"
     kernels = []
-    for name, src, replaces, meas in (
-            ("pass2_min", "seabreeze_param_tpu_torch/csrc/pass2_min.cu",
-             "seabreeze_param_tpu/ops/pallas/distance_kernel.py:233", b2),
-            ("ring_trigger_stacked",
-             "seabreeze_param_tpu_torch/csrc/ring_trigger.cu",
-             "seabreeze_param_tpu/ops/pallas/ring_kernel.py:694", b1)):
+    for name, cu, replaces, meas, launches, path in (
+            ("pass2_min", "pass2_min.cu", "distance_kernel.py:233", b2,
+             main_out["launches"]["pass2_min"], "main path: diag"),
+            ("ring_trigger_stacked", "ring_trigger.cu", "ring_kernel.py:694",
+             b1, main_out["launches"]["ring_trigger"], "main path: diag"),
+            ("min_haversine", "min_haversine.cu", "distance_kernel.py:93",
+             per_kernel("min_haversine"),
+             fused["launches"]["min_haversine"],
+             "TriggerPipeline(distance_impl='fused').run"),
+            ("ring_trigger_padded", "ring_trigger.cu", "ring_kernel.py:837",
+             per_kernel("ring_trigger_padded"),
+             coupling["launches"]["ring_trigger_padded"],
+             "coupling: CoupledTrigger.physics"),
+            ("ring_thc", "ring_trigger.cu", "ring_kernel.py:194",
+             per_kernel("ring_thc"), coupling["b5_launches"],
+             "standalone op on the coupled steps")):
         m = meas["global025"]
         kernels.append(dict(
-            name=name, route="cuda", source=src, replaces=replaces,
-            launches=launches[name.replace("_stacked", "")],
-            max_abs_err=m["max_abs_err"], ms=m["ms"], plain_ms=m["plain_ms"],
-            shape="global025",
+            name=name, route="cuda", source=src + cu, replaces=pal + replaces,
+            launches=launches, max_abs_err=m["max_abs_err"], ms=m["ms"],
+            plain_ms=m["plain_ms"], shape="global025", path=path,
             global010=meas.get("global010")))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

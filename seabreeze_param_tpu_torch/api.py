@@ -117,7 +117,7 @@ def diag(tt, lsm, z, std, lon, lat, pres, *args, **kwargs):
     if mesh is not None:
         raise NotImplementedError(
             "mesh= (the decomposed multi-device run) is not ported yet: "
-            "ROADMAP.md queue 1, item 11 (parallel)")
+            "ROADMAP.md queue 1, the parallel item")
     device = torch.device(device)
 
     tt = max(1, int(tt))

@@ -5,10 +5,12 @@ the coastline and coast distance from the (moving) sea-ice field, run the
 trigger, and thread the state forward (reference ``__init__.py:219-245``).
 The JAX ``lax.scan`` becomes a Python loop over T that enqueues device work
 without waiting for it.  With the kernels (the default on CUDA), each step
-launches kernel B2 for the distance and kernel B1 for the ring search and
-trigger, which writes slot t of preallocated (T, nlat, nlon) stacks; with
-``use_kernels=False`` the plain torch ops run instead and their fields are
-copied into the same stacks.
+of :meth:`TriggerPipeline.run` launches kernel B2 (or B3, with
+``distance_impl='fused'``) for the distance and kernel B1 for the ring
+search and trigger, which writes slot t of preallocated (T, nlat, nlon)
+stacks; with ``use_kernels=False`` the plain torch ops run instead and their
+fields are copied into the same stacks.  :meth:`TriggerPipeline.step`, the
+single step a coupled model calls, takes kernel B4 for the ring search.
 """
 from __future__ import annotations
 
@@ -39,6 +41,10 @@ class TriggerPipeline:
     on the CPU; True: the kernel path (whose wrappers take their plain
     versions for CPU tensors); False: the plain path, which exists to
     compare the kernels with it on the card.
+    ``distance_impl`` — the coast-distance gather-min
+    (``ops.distance.coast_distance``): ``'auto'`` (B2 on the card),
+    ``'hybrid'``, ``'fused'`` (B3) or ``'plain'``; ``use_kernels=False``
+    makes it ``'plain'``.
     """
 
     grid: Grid
@@ -46,6 +52,7 @@ class TriggerPipeline:
     ring_nn: int | None = None
     device: str | torch.device = "cuda"
     use_kernels: bool | None = None
+    distance_impl: str = "auto"
 
     @property
     def k(self) -> int:
@@ -73,13 +80,33 @@ class TriggerPipeline:
             object.__setattr__(self, "_tabs", tabs)
         return tabs
 
+    def distance_from_coast(self, coast, lsm):
+        """Signed coast distance from a coastline field, through the
+        pipeline's cached tables and its ``distance_impl``."""
+        impl = "plain" if self.use_kernels is False else self.distance_impl
+        return coast_distance(coast, lsm, self.grid, self.params.maxdist,
+                              k=self.k, tables=self._tables(), impl=impl)
+
     def distance_field(self, lsm, ci=None):
         """Coastline + signed coast distance for one (lsm, sea-ice) pair of
         float32 tensors on the pipeline's device."""
         coast = get_edges(lsm, ci, exact_lon=self.params.exact_lon_indexing)
-        return coast_distance(coast, lsm, self.grid, self.params.maxdist,
-                              k=self.k, tables=self._tables(),
-                              use_kernels=self.kernels)
+        return self.distance_from_coast(coast, lsm)
+
+    def step(self, state: TriggerState, theta, u, v, lsm, z, std, pres,
+             ci=None, smod=None):
+        """One full timestep (distance rebuild + trigger), kernel B4 on the
+        kernel path.  Fields as arrays or tensors (moved to the pipeline's
+        device as float32); ``state`` holds tensors on that device and is
+        not modified.  Returns ``(new_state, outputs)``, outputs the four
+        (nlat, nlon) fields of :func:`ops.trigger.trigger_core`."""
+        dev = torch.device(self.device)
+        theta, u, v, lsm, z, std, pres = (
+            _f32(a, dev) for a in (theta, u, v, lsm, z, std, pres))
+        cdist = self.distance_field(lsm, None if ci is None else _f32(ci, dev))
+        return trigger_step(state, theta, u, v, cdist, z, std, pres,
+                            self.params, self.nn_max, smod=smod,
+                            use_kernels=self.kernels)
 
     def run(self, state: TriggerState, theta_t, u_t, v_t, lsm, z, std, pres,
             ci_t=None):
@@ -126,7 +153,8 @@ class TriggerPipeline:
                     st, *step, t, sb_b, ws_b, wd_b, scan.add_coastal(cdist),
                     smod=smod)
             else:
-                st, out = trigger_step(st, *step, smod=smod)
+                st, out = trigger_step(st, *step, smod=smod,
+                                       use_kernels=False)
                 sb_b[t], t0s[t] = out["sb_con"], out["t0"]
                 ws_b[t], wd_b[t] = out["windspeed"], out["winddir"]
         return st, {"sb_con": sb_b, "t0": t0s, "windspeed": ws_b,

@@ -1,11 +1,12 @@
 """Build and load the hand-written CUDA kernels of ``csrc/``.
 
-Every ``csrc/*.cu`` source is compiled by ``nvcc`` for ``sm_90a`` into one
-shared library with a plain C interface, loaded with ``ctypes``.  The build
-runs at first use (never at import: machines without ``nvcc`` import every
-module of the package) into ``build/kernels/`` beside the package, under a
-name keyed by a hash of the sources and flags, so a changed source rebuilds
-and an unchanged one loads at once.
+Every ``csrc/*.cu`` source is compiled by ``nvcc`` for ``sm_90a`` (one
+``nvcc`` per source, all started together) and the objects are linked into
+one shared library with a plain C interface, loaded with ``ctypes``.  The
+build runs at first use (never at import: machines without ``nvcc`` import
+every module of the package) into ``build/kernels/`` beside the package,
+under a name keyed by a hash of the sources and flags, so a changed source
+rebuilds and an unchanged one loads at once.
 
 Flags: ``-O3`` and IEEE float semantics — no ``--use_fast_math``; the
 kernels pin their roundings with ``__fadd_rn``/``__fmul_rn`` where an FMA
@@ -19,6 +20,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 import time
 from pathlib import Path
 
@@ -27,8 +29,10 @@ import torch
 _PKG = Path(__file__).resolve().parents[2]
 SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+_GENCODE = ("-gencode", "arch=compute_90a,code=sm_90a")
+COMPILE_FLAGS = (*_GENCODE, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+                 "-Xptxas", "-v")
+LINK_FLAGS = (*_GENCODE, "-shared")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -38,6 +42,8 @@ _F = ctypes.c_float
 SIGNATURES = {
     # mmin, sdphi2, po, out, h, w, k, stream
     "sbz_pass2_min": (_P, _P, _P, _P, _I, _I, _I, _P),
+    # cpad, sdphi2, po, sdlam2, out, h, w, k, stream
+    "sbz_min_haversine": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
     # t0_pad, cd_pad, cd, ws_new, wd_new, ws_state, wd_state, ever,
     # sb_buf, ws_buf, wd_buf, h, w, nn, step, is_first, upd, row_offset,
     # nlat_total, skip_last_row, maxdist, thresh_wind, thresh_winddir,
@@ -45,6 +51,15 @@ SIGNATURES = {
     "sbz_ring_trigger_stacked": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                  _I, _I, _I, _I, _I, _I, _I, _I, _I,
                                  _F, _F, _F, _F, _F, _P),
+    # t0_pad, cd_pad, cd, ws_new, wd_new, ws_state, wd_state, sb_out,
+    # ws_out, wd_out, h, w, nn, is_first, upd, row_offset, nlat_total,
+    # skip_last_row, maxdist, thresh_wind, thresh_winddir, thresh_windch,
+    # thresh_thc, stream
+    "sbz_ring_trigger_padded": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                _I, _I, _I, _I, _I, _I, _I, _I,
+                                _F, _F, _F, _F, _F, _P),
+    # t0_pad, cd_pad, cd, n_thc, h, w, nn, maxdist, stream
+    "sbz_ring_thc_padded": (_P, _P, _P, _P, _I, _I, _I, _F, _P),
 }
 
 #: Seconds the last build took in this process (0.0 when it was cached).
@@ -66,11 +81,20 @@ def _sources():
 
 def library_path() -> Path:
     """Where the library for the current sources and flags lives."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(COMPILE_FLAGS + LINK_FLAGS).encode())
     for src in _sources():
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libsbz_kernels_{h.hexdigest()[:16]}.so"
+
+
+def _run_all(cmds):
+    """Run the commands at once; return (return codes, joined output)."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    return [p.returncode for p in procs], "".join(outs)
 
 
 def build() -> Path:
@@ -79,17 +103,26 @@ def build() -> Path:
     if lib.exists():
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(s) for s in _sources() if s.suffix == ".cu"]]
-    t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    BUILD_STATS["seconds"] = time.perf_counter() - t0
-    BUILD_STATS["log"] = res.stdout + res.stderr
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
-                           + BUILD_STATS["log"])
-    os.replace(tmp, lib)
+    nvcc = _nvcc()
+    work = Path(tempfile.mkdtemp(prefix=f"{lib.stem}.", dir=BUILD_DIR))
+    try:
+        srcs = [s for s in _sources() if s.suffix == ".cu"]
+        objs = [str(work / f"{s.stem}.o") for s in srcs]
+        t0 = time.perf_counter()
+        rcs, log = _run_all([[nvcc, *COMPILE_FLAGS, "-c", "-o", o, str(s)]
+                             for s, o in zip(srcs, objs)])
+        if not any(rcs):
+            tmp = str(work / lib.name)
+            link_rcs, link_log = _run_all([[nvcc, *LINK_FLAGS, "-o", tmp,
+                                            *objs]])
+            rcs, log = rcs + link_rcs, log + link_log
+        BUILD_STATS["seconds"] = time.perf_counter() - t0
+        BUILD_STATS["log"] = log
+        if any(rcs):
+            raise RuntimeError(f"nvcc failed ({rcs}):\n{log}")
+        os.replace(tmp, lib)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
     return lib
 
 

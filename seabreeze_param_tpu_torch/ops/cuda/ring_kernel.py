@@ -1,8 +1,16 @@
-"""Wrapper of kernel B1 (``csrc/ring_trigger.cu``): the fused ring search
-and trigger tail writing slot t of the stacked outputs.  Replaces the JAX
-package's ``ops/pallas/ring_kernel.py::ring_trigger_pallas_stacked``; its
-plain version is ``ops.trigger.trigger_cells`` (with
-``ops.ring_search.ring_thc_from_padded``).
+"""Wrappers of kernels B1, B4 and B5 (``csrc/ring_trigger.cu``), the three
+forms of the ring search, replacing the JAX package's
+``ops/pallas/ring_kernel.py`` kernels:
+
+* B1 :func:`ring_trigger_cuda_stacked` (``ring_trigger_pallas_stacked``):
+  ring search + trigger tail writing slot t of the stacked outputs;
+* B4 :func:`ring_trigger_cuda_padded` (``ring_trigger_pallas_padded``):
+  the same on every tile, returning the step's sb and new wind state;
+* B5 :func:`ring_thc_cuda_padded` (``ring_thc_pallas_padded``): the ring
+  search alone.
+
+Plain versions: ``ops.trigger.trigger_cells`` (B1, B4) and
+``ops.ring_search.ring_thc_from_padded`` (B5).
 
 :class:`StackedScan` is the counterpart of the JAX package's
 ``CompactStackedScan``: it owns the kernel's tile grid, the pre-filled
@@ -142,3 +150,98 @@ def ring_trigger_cuda_stacked(t0_pad, cd_pad, cd_center, ws_new, wd_new,
 
 
 ring_trigger_cuda_stacked.launches = 0
+
+
+def _require_pads(t0_pad, cd_pad, cd_center, NN: int):
+    h, w = cd_center.shape
+    dev = t0_pad.device
+    for name, t in (("t0_pad", t0_pad), ("cd_pad", cd_pad)):
+        _build.require(t, name, (h + 2 * NN, w + 2 * NN), dev)
+    _build.require(cd_center, "cd_center", (h, w), dev)
+    return h, w, dev
+
+
+def ring_trigger_cuda_padded(t0_pad, cd_pad, cd_center, ws_new, wd_new,
+                             ws_state, wd_state, is_first: bool, upd: bool,
+                             params: Params, nn_max: int):
+    """Kernel B4: ring search + trigger tail for one step over every tile.
+
+    ``t0_pad``/``cd_pad`` (h+2NN, w+2NN); ``cd_center``, ``ws_new``,
+    ``wd_new``, ``ws_state``, ``wd_state`` (h, w).  Returns ``(sb, ws', wd')``
+    (h, w): the step's sb_con (zero in the reference's unwritten last row)
+    and the new wind state (frozen in that row).  The inputs are not
+    modified.
+
+    A CUDA tensor launches the kernel on the current stream (one launch,
+    counted in ``ring_trigger_cuda_padded.launches``); a CPU tensor takes
+    the plain version, ``ops.trigger.trigger_cells``.
+    """
+    NN = int(nn_max)
+    if t0_pad.device.type == "cpu":
+        from ..trigger import trigger_cells
+        sb, _, _, ws_st, wd_st = trigger_cells(
+            cd_center, ws_new, wd_new, ws_state, wd_state, t0_pad, cd_pad,
+            is_first, upd, params, NN)
+        return sb, ws_st, wd_st
+
+    h, w, dev = _require_pads(t0_pad, cd_pad, cd_center, NN)
+    for name, t in (("ws_new", ws_new), ("wd_new", wd_new),
+                    ("ws_state", ws_state), ("wd_state", wd_state)):
+        _build.require(t, name, (h, w), dev)
+    sb, ws_o, wd_o = (torch.empty((h, w), dtype=torch.float32, device=dev)
+                      for _ in range(3))
+    f32 = np.float32
+    lib = _build.load()
+    with torch.cuda.device(dev):
+        err = lib.sbz_ring_trigger_padded(
+            t0_pad.data_ptr(), cd_pad.data_ptr(), cd_center.data_ptr(),
+            ws_new.data_ptr(), wd_new.data_ptr(), ws_state.data_ptr(),
+            wd_state.data_ptr(), sb.data_ptr(), ws_o.data_ptr(),
+            wd_o.data_ptr(), h, w, NN, int(bool(is_first)), int(bool(upd)),
+            # row offset 0 of an nlat_total = h grid, as in B1
+            0, h, int(bool(params.skip_last_lat_row)), *(
+                float(f32(x)) for x in (
+                    params.maxdist, params.thresh_wind, params.thresh_winddir,
+                    params.thresh_windch, params.thresh_thc)),
+            torch.cuda.current_stream().cuda_stream)
+    _build.check(err, "ring_trigger_cuda_padded")
+    ring_trigger_cuda_padded.launches += 1
+    return sb, ws_o, wd_o
+
+
+ring_trigger_cuda_padded.launches = 0
+
+
+def ring_thc_cuda_padded(t0_pad, cd_pad, cd_center, nn_max: int, *,
+                         maxdist: float = 180.0):
+    """Kernel B5: the ring search alone.  ``t0_pad``/``cd_pad``
+    (h+2NN, w+2NN), ``cd_center`` (h, w) -> n_thc (h, w), zero off the
+    band |cd_center| <= maxdist.
+
+    A CUDA tensor launches the kernel (counted in
+    ``ring_thc_cuda_padded.launches``); a CPU tensor takes the plain
+    version, ``ring_thc_from_padded(ring_quantities(t0_pad, cd_pad), mul,
+    NN, coastal=...)``.
+    """
+    NN = int(nn_max)
+    if t0_pad.device.type == "cpu":
+        from ..ring_search import ring_quantities, ring_thc_from_padded
+        mul = torch.where(cd_center >= 0.0, 1.0, -1.0)
+        coastal = cd_center.abs() <= float(np.float32(maxdist))
+        return ring_thc_from_padded(ring_quantities(t0_pad, cd_pad), mul, NN,
+                                    coastal=coastal)[0]
+
+    h, w, dev = _require_pads(t0_pad, cd_pad, cd_center, NN)
+    out = torch.empty((h, w), dtype=torch.float32, device=dev)
+    lib = _build.load()
+    with torch.cuda.device(dev):
+        err = lib.sbz_ring_thc_padded(
+            t0_pad.data_ptr(), cd_pad.data_ptr(), cd_center.data_ptr(),
+            out.data_ptr(), h, w, NN, float(np.float32(maxdist)),
+            torch.cuda.current_stream().cuda_stream)
+    _build.check(err, "ring_thc_cuda_padded")
+    ring_thc_cuda_padded.launches += 1
+    return out
+
+
+ring_thc_cuda_padded.launches = 0

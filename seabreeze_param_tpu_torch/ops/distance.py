@@ -13,8 +13,9 @@ over the (2k+1)^2 window separates into two passes:
   (plain torch ops — XLA fused it on the TPU, no kernel to port);
 * pass 2, per target row: amin[y, x] = min_di sdphi2[y, di] + po[y, di] *
   Mmin[y + di, x].  :func:`pass2_min` here is the plain version of kernel
-  B2 (``ops/cuda/distance_kernel.py``), which :func:`coast_distance` uses
-  for CUDA tensors.
+  B2 (``ops/cuda/distance_kernel.py``), and
+  :func:`min_haversine_param_from_padded` (both passes) that of kernel B3;
+  :func:`coast_distance` picks one by ``impl``.
 
 The transcendentals run once, on the winner (:func:`finalize_distance`).
 """
@@ -128,33 +129,63 @@ def finalize_distance(amin, lsm, maxdist):
                        sent, cdist)
 
 
+def min_haversine_param_from_padded(cpad, sdphi2, po, sdlam2, k: int):
+    """Both passes on a k-padded coast field (:func:`pad_coast`): the plain
+    version of kernel B3.  Returns amin (h, w)."""
+    return pass2_min(pass1_extrema(cpad, sdlam2, k), sdphi2, po, k)
+
+
 def device_tables(grid: Grid, k: int, device):
     """:func:`distance_tables` as float32 tensors on ``device``."""
     return tuple(torch.as_tensor(t, device=device)
                  for t in distance_tables(grid, k))
 
 
+IMPLS = ("auto", "hybrid", "fused", "plain")
+
+
+def resolve_impl(impl: str, device) -> str:
+    """``'auto'`` is ``'hybrid'`` on the card and ``'plain'`` elsewhere."""
+    if impl not in IMPLS:
+        raise ValueError(f"distance impl {impl!r}: want one of {IMPLS}")
+    if impl != "auto":
+        return impl
+    return "hybrid" if torch.device(device).type == "cuda" else "plain"
+
+
 def coast_distance(coast, lsm, grid: Grid, maxdist: float = 180.0, *,
-                   k: int | None = None, tables=None,
-                   use_kernels: bool | None = None):
+                   k: int | None = None, tables=None, impl: str = "auto"):
     """Full ``get_dist`` equivalent: signed km distance to the nearest
     coastline cell, positive over land, negative over sea, 12000 km sentinel
     beyond 2*maxdist.
 
     ``tables`` — :func:`device_tables` for this grid and k, so a caller
-    looping over steps builds them once.  Pass 2 goes to kernel B2 through
-    its wrapper, which launches the kernel for a CUDA tensor and takes the
-    plain version for a CPU tensor (the JAX package's ``resolve_impl``);
-    ``use_kernels=False`` forces the plain version on any device.
+    looping over steps builds them once.  ``impl`` — the gather-min:
+
+    * ``'hybrid'``: torch pass 1, then kernel B2 for pass 2;
+    * ``'fused'``: kernel B3, both passes per tile;
+    * ``'plain'``: both passes as torch ops;
+    * ``'auto'`` (default): ``'hybrid'`` on the card, ``'plain'`` on the
+      CPU.
+
+    The JAX package's names: ``'xla'`` is ``'plain'``, ``'pallas'`` is
+    ``'fused'``.  A kernel wrapper handed a CPU tensor takes its plain
+    version, so every choice gives the plain result on the CPU.
     """
     k_eff = effective_radius(grid, maxdist, k)
     if tables is None:
         tables = device_tables(grid, k_eff, coast.device)
     sdphi2, po, sdlam2 = tables
-    Mmin = pass1_extrema(pad_coast(coast, k_eff), sdlam2, k_eff)
-    if use_kernels is False:
-        amin = pass2_min(Mmin, sdphi2, po, k_eff)
-    else:
+    impl = resolve_impl(impl, coast.device)
+    cpad = pad_coast(coast, k_eff)
+    if impl == "fused":
+        from .cuda.distance_kernel import min_haversine_param_cuda
+        amin = min_haversine_param_cuda(cpad, sdphi2, po, sdlam2, k_eff)
+    elif impl == "hybrid":
         from .cuda.distance_kernel import pass2_min_cuda
-        amin = pass2_min_cuda(Mmin, sdphi2, po, k_eff)
+        amin = pass2_min_cuda(pass1_extrema(cpad, sdlam2, k_eff), sdphi2, po,
+                              k_eff)
+    else:
+        amin = min_haversine_param_from_padded(cpad, sdphi2, po, sdlam2,
+                                               k_eff)
     return finalize_distance(amin, lsm, maxdist)

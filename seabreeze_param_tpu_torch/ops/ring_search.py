@@ -9,8 +9,9 @@ incrementally (a horizontal and a vertical running sum), and each cell
 latches its sums at the first radius that holds both classes.
 
 :func:`ring_thc_from_padded` is, with ``ops.trigger.trigger_cells``, the
-plain version of kernel B1 (``ops/cuda/ring_kernel.py``); the kernel keeps
-its summation order exactly.
+plain version of kernels B1 and B4 (``ops/cuda/ring_kernel.py``), and alone
+the plain version of kernel B5; the kernels keep its summation order
+exactly.
 """
 from __future__ import annotations
 
@@ -18,7 +19,7 @@ import numpy as np
 import torch
 
 from .indexing import (lat_index_clamped, lon_index_periodic,
-                       lon_index_quirky, pad_indices)
+                       lon_index_quirky, pad2d, pad_indices)
 
 
 def required_ring_radius_host(cdist, maxdist, *, exact_lon: bool = True,
@@ -134,3 +135,17 @@ def ring_thc_from_padded(P, mul, nn_max: int, *, coastal=None):
     if coastal is not None:
         n_thc = torch.where(coastal, n_thc, 0.0)
     return n_thc, found
+
+
+def ring_thc(t0, cdist, nn_max: int, *, exact_lon: bool = True,
+             maxdist: float | None = None):
+    """Expanding-ring THC of an unpadded (t0, cdist) pair: pad the quantity
+    stack through the boundary maps, then :func:`ring_thc_from_padded`.
+    With ``maxdist`` the output is zero off the band |cdist| <= maxdist.
+    Returns (n_thc, found)."""
+    NN = int(nn_max)
+    P = pad2d(ring_quantities(t0, cdist), NN, NN, exact_lon=exact_lon)
+    mul = torch.where(cdist >= 0.0, 1.0, -1.0)
+    coastal = None if maxdist is None else (
+        cdist.abs() <= float(np.float32(maxdist)))
+    return ring_thc_from_padded(P, mul, NN, coastal=coastal)

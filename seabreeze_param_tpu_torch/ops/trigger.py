@@ -7,13 +7,15 @@ All arithmetic is float32 with the reference's constants (rad2deg =
 modulo (``torch.remainder``, as ``jnp.mod``), never ``torch.fmod``.
 
 Two forms of a timestep, each :func:`prepare_step` (t0, wind, pads) then a
-per-cell core; ``TriggerPipeline.run`` calls one of them per step:
+per-cell core:
 
-* :func:`trigger_step` / :func:`trigger_core` — the plain torch path,
-  returning per-step fields;
+* :func:`trigger_step` / :func:`trigger_core` — per-step fields, through
+  kernel B4 (``ops/cuda/ring_kernel.py``) or the plain torch path
+  (:func:`trigger_cells`); ``TriggerPipeline.step``, the coupling API and
+  the plain ``TriggerPipeline.run`` call it;
 * :func:`trigger_step_stacked` / :func:`trigger_core_stacked` — the
-  production path: kernel B1 (``ops/cuda/ring_kernel.py``) writes slot t of
-  preallocated (T, h, w) stacks and updates the wind state in place.
+  production scan: kernel B1 writes slot t of preallocated (T, h, w)
+  stacks and updates the wind state in place.
 """
 from __future__ import annotations
 
@@ -70,10 +72,11 @@ def row_mask(h: int, params: Params, device):
 
 def trigger_cells(cdist, ws_new, wd_new, ws_state, wd_state, t0_pad, cd_pad,
                   is_first: bool, upd: bool, params: Params, nn_max: int):
-    """The plain version of kernel B1: ring THC and trigger tail for every
-    cell.  Returns ``(sb, ws_out, wd_out, ws_state', wd_state')``: the
-    three output fields of the step (zero in the reference's unwritten last
-    row) and the new wind state (frozen in that row)."""
+    """The plain version of kernels B1 and B4: ring THC and trigger tail
+    for every cell.  Returns ``(sb, ws_out, wd_out, ws_state',
+    wd_state')``: the three output fields of the step (zero in the
+    reference's unwritten last row) and the new wind state (frozen in that
+    row)."""
     coastal = cdist.abs() <= float(np.float32(params.maxdist))
     mul = torch.where(cdist >= 0.0, 1.0, -1.0)
     n_thc, _ = ring_thc_from_padded(ring_quantities(t0_pad, cd_pad), mul,
@@ -114,16 +117,34 @@ def trigger_cells(cdist, ws_new, wd_new, ws_state, wd_state, t0_pad, cd_pad,
 
 
 def trigger_core(state: TriggerState, t0, cdist, ws_new, wd_new, t0_pad,
-                 cd_pad, params: Params, nn_max: int):
-    """The per-cell part of a timestep from pre-padded ring inputs, plain
-    torch path.  Returns ``(new_state, outputs)`` with outputs the four
-    reference slots ``sb_con``, ``t0``, ``windspeed``, ``winddir``.  The
-    threaded ``thc`` slot carries t0 (reference convention)."""
+                 cd_pad, params: Params, nn_max: int, *,
+                 use_kernels: bool | None = None):
+    """The per-cell part of a timestep from pre-padded ring inputs.
+    Returns ``(new_state, outputs)`` with outputs the four reference slots
+    ``sb_con``, ``t0``, ``windspeed``, ``winddir``.  The threaded ``thc``
+    slot carries t0 (reference convention).  ``state`` is not modified.
+
+    ``use_kernels`` (the JAX package's ``use_pallas``) — None: kernel B4 for
+    a CUDA tensor, the plain path for a CPU tensor; True: B4 through its
+    wrapper; False: the plain path (:func:`trigger_cells`)."""
     is_first, upd = cadence(state.tt, params)
-    sb, out_ws, out_wd, ws_st, wd_st = trigger_cells(
-        cdist, ws_new, wd_new, state.windspeed, state.winddir, t0_pad,
-        cd_pad, is_first, upd, params, nn_max)
-    out_t0 = torch.where(row_mask(t0.shape[0], params, t0.device), t0, 0.0)
+    row_ok = row_mask(t0.shape[0], params, t0.device)
+    if use_kernels is None:
+        use_kernels = t0.device.type == "cuda"
+    if use_kernels:
+        from .cuda.ring_kernel import ring_trigger_cuda_padded
+        # B4 returns the new state (frozen in the unwritten last row); the
+        # output slots are zero there, as the plain path's.
+        sb, ws_st, wd_st = ring_trigger_cuda_padded(
+            t0_pad, cd_pad, cdist, ws_new, wd_new, state.windspeed,
+            state.winddir, is_first, upd, params, nn_max)
+        out_ws = torch.where(row_ok, ws_st, 0.0)
+        out_wd = torch.where(row_ok, wd_st, 0.0)
+    else:
+        sb, out_ws, out_wd, ws_st, wd_st = trigger_cells(
+            cdist, ws_new, wd_new, state.windspeed, state.winddir, t0_pad,
+            cd_pad, is_first, upd, params, nn_max)
+    out_t0 = torch.where(row_ok, t0, 0.0)
     new_state = TriggerState(tt=state.tt + 1, thc=out_t0, windspeed=ws_st,
                              winddir=wd_st)
     return new_state, {"sb_con": sb, "t0": out_t0, "windspeed": out_ws,
@@ -143,14 +164,15 @@ def prepare_step(theta, u, v, cdist, z, std, pres, params: Params,
 
 
 def trigger_step(state: TriggerState, theta, u, v, cdist, z, std, pres,
-                 params: Params, nn_max: int, *, smod=None):
-    """One trigger timestep, plain torch path.  ``smod`` may be passed
-    precomputed (it depends only on the static ``std``).  Returns
-    ``(new_state, outputs)``."""
+                 params: Params, nn_max: int, *, smod=None,
+                 use_kernels: bool | None = None):
+    """One trigger timestep.  ``smod`` may be passed precomputed (it
+    depends only on the static ``std``); ``use_kernels`` as in
+    :func:`trigger_core`.  Returns ``(new_state, outputs)``."""
     t0, ws_new, wd_new, t0_pad, cd_pad = prepare_step(
         theta, u, v, cdist, z, std, pres, params, nn_max, smod)
     return trigger_core(state, t0, cdist, ws_new, wd_new, t0_pad, cd_pad,
-                        params, nn_max)
+                        params, nn_max, use_kernels=use_kernels)
 
 
 def trigger_core_stacked(state: TriggerState, t0, cdist, ws_new, wd_new,

@@ -7,7 +7,9 @@ repo's conftest (which imports JAX) is skipped:
 
 Without a CUDA device every test skips: the kernels have no CPU mode.
 Grids include a ragged tile edge (37 x 70) and a grid smaller than one
-tile (10 x 20), whose wrap seam pushes the ring radius up.
+tile (10 x 20), whose wrap seam pushes the ring radius up.  Kernels B1 and
+B2 carry ``TriggerPipeline.run``; B3 the fused distance, B4 the per-step
+coupling path, B5 the ring search alone.
 """
 import numpy as np
 import pytest
@@ -17,14 +19,20 @@ from bench import make_world
 from seabreeze_param_tpu_torch.api import diag
 from seabreeze_param_tpu_torch.core.grid import Grid
 from seabreeze_param_tpu_torch.core.params import Params
+from seabreeze_param_tpu_torch.core.state import TriggerState
+from seabreeze_param_tpu_torch.coupling import CoupledTrigger
 from seabreeze_param_tpu_torch.models.pipeline import TriggerPipeline
 from seabreeze_param_tpu_torch.ops.coastline import get_edges
-from seabreeze_param_tpu_torch.ops.cuda.distance_kernel import pass2_min_cuda
+from seabreeze_param_tpu_torch.ops.cuda.distance_kernel import (
+    min_haversine_param_cuda, pass2_min_cuda)
 from seabreeze_param_tpu_torch.ops.cuda.ring_kernel import (
-    StackedScan, ring_trigger_cuda_stacked)
-from seabreeze_param_tpu_torch.ops.distance import (device_tables,
-                                                    pad_coast, pass1_extrema,
-                                                    pass2_min)
+    StackedScan, ring_thc_cuda_padded, ring_trigger_cuda_padded,
+    ring_trigger_cuda_stacked)
+from seabreeze_param_tpu_torch.ops.distance import (
+    device_tables, min_haversine_param_from_padded, pad_coast, pass1_extrema,
+    pass2_min)
+from seabreeze_param_tpu_torch.ops.ring_search import (ring_quantities,
+                                                       ring_thc_from_padded)
 from seabreeze_param_tpu_torch.ops.trigger import (cadence, prepare_step,
                                                    trigger_cells)
 
@@ -185,3 +193,156 @@ def test_launchers_reject_oversized_shared_memory(dev):
     torch.cuda.synchronize()
     assert pass2_min_cuda.launches == p0 + 1
     assert (out == 1.0e30).all()
+
+
+@pytest.mark.cuda
+def test_new_launchers_reject_oversized_shared_memory(dev):
+    """B3 at a radius of 1000 cells and B4/B5 at NN = 60 need more shared
+    memory than a block may hold: each wrapper raises, counts no launch,
+    and the next good launch is not blamed."""
+    def zeros(*shape):
+        return torch.zeros(shape, device=dev)
+
+    counts = lambda: (min_haversine_param_cuda.launches,  # noqa: E731
+                      ring_trigger_cuda_padded.launches,
+                      ring_thc_cuda_padded.launches)
+    before = counts()
+    h, w, k = 10, 16, 1000                    # B3: ~17 MB per block
+    with pytest.raises(RuntimeError, match="cudaError_t"):
+        min_haversine_param_cuda(zeros(h + 2 * k, w + 2 * k),
+                                 zeros(h, 2 * k + 1), zeros(h, 2 * k + 1),
+                                 zeros(w, 2 * k + 1), k)
+    h, w, nn = 8, 8, 60                       # B4, B5: 246784 bytes
+    pads = (zeros(h + 2 * nn, w + 2 * nn), zeros(h + 2 * nn, w + 2 * nn))
+    with pytest.raises(RuntimeError, match="cudaError_t"):
+        ring_trigger_cuda_padded(*pads, *(zeros(h, w) for _ in range(5)),
+                                 False, False, Params(), nn)
+    with pytest.raises(RuntimeError, match="cudaError_t"):
+        ring_thc_cuda_padded(*pads, zeros(h, w), nn)
+    assert counts() == before
+    k = 2
+    out = min_haversine_param_cuda(zeros(10 + 2 * k, 16 + 2 * k),
+                                   zeros(10, 5), zeros(10, 5), zeros(16, 5), k)
+    torch.cuda.synchronize()
+    assert counts() == (before[0] + 1,) + before[1:]
+    assert (out == 1.0e30).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(GRIDS))
+@pytest.mark.parametrize("radius", ["k", "zero"])
+def test_min_haversine_kernel_bit_equal_to_plain(name, radius, dev):
+    """B3 against its plain version, bit for bit, at the grid's k and at
+    k = 0 (a one-tap window); and against the hybrid (torch pass 1 + B2)."""
+    grid, (lsm, *_, ci) = _world(name)
+    k = TriggerPipeline(grid, device=dev).k if radius == "k" else 0
+    tabs = device_tables(grid, k, dev)
+    coast = get_edges(torch.as_tensor(lsm, device=dev),
+                      torch.as_tensor(ci[1], device=dev))
+    cpad = pad_coast(coast, k)
+    before = min_haversine_param_cuda.launches
+    got = min_haversine_param_cuda(cpad, *tabs, k)
+    assert min_haversine_param_cuda.launches == before + 1
+    torch.testing.assert_close(
+        got, min_haversine_param_from_padded(cpad, *tabs, k), rtol=0, atol=0)
+    torch.testing.assert_close(
+        got, pass2_min_cuda(pass1_extrema(cpad, tabs[2], k), tabs[0],
+                            tabs[1], k), rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(GRIDS))
+@pytest.mark.parametrize("tt", [1, 5, 15])
+def test_ring_padded_kernels_bit_equal_to_plain(name, tt, dev):
+    """B4 (sb and the new wind state) and B5 (n_thc) against their plain
+    versions, bit for bit, across seeding (1), a plain step (5) and a
+    refresh (15); B4 leaves its inputs alone."""
+    grid, (lsm, z, std, pres, theta, u, v, ci) = _world(name)
+    params = Params()
+    D = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
+    pipe = TriggerPipeline(grid, device=dev)
+    nn = pipe.nn_max + 4
+    cd = pipe.distance_field(D(lsm), D(ci[1]))
+    t0, ws_new, wd_new, t0_pad, cd_pad = prepare_step(
+        D(theta[1]), D(u[1]), D(v[1]), cd, D(z), D(std), D(pres), params, nn)
+    rng = np.random.default_rng(tt)
+    ws0 = D((5 + rng.random(lsm.shape)).astype(np.float32))
+    wd0 = D((360 * rng.random(lsm.shape) - 180).astype(np.float32))
+    keep = ws0.clone()
+    is_first, upd = cadence(tt, params)
+    before = ring_trigger_cuda_padded.launches
+    got = ring_trigger_cuda_padded(t0_pad, cd_pad, cd, ws_new, wd_new, ws0,
+                                   wd0, is_first, upd, params, nn)
+    assert ring_trigger_cuda_padded.launches == before + 1
+    ref = trigger_cells(cd, ws_new, wd_new, ws0, wd0, t0_pad, cd_pad,
+                        is_first, upd, params, nn)
+    for g, want in zip(got, (ref[0], ref[3], ref[4])):
+        torch.testing.assert_close(g, want, rtol=0, atol=0)
+    torch.testing.assert_close(ws0, keep, rtol=0, atol=0)
+
+    before = ring_thc_cuda_padded.launches
+    n_thc = ring_thc_cuda_padded(t0_pad, cd_pad, cd, nn)
+    assert ring_thc_cuda_padded.launches == before + 1
+    coastal = cd.abs() <= 180.0
+    want, _ = ring_thc_from_padded(ring_quantities(t0_pad, cd_pad),
+                                   torch.where(cd >= 0, 1.0, -1.0), nn,
+                                   coastal=coastal)
+    torch.testing.assert_close(n_thc, want, rtol=0, atol=0)
+    assert (n_thc[~coastal] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(GRIDS))
+def test_coupled_paths_match_plain(name, dev):
+    """Three coupled steps from tt=14 (prepare_mask + physics, 3-D
+    pressure) and three ``TriggerPipeline.step`` calls: kernel path
+    against plain path, per-step fields within 2e-5/2e-4, wind state
+    bit-equal, B4 once per step.  The fused distance (B3) gives the
+    default distance field bit for bit, and a fused ``run`` the default
+    run's outputs."""
+    grid, (lsm, z, std, pres, theta, u, v, ci) = _world(name)
+    rng = np.random.default_rng(2)
+    p3 = (pres[:, None, None] * (1.0 + 0.3 * rng.random(
+        (1,) + lsm.shape))).astype(np.float32)
+    ws = (5 + rng.random(lsm.shape)).astype(np.float32)
+    runs = {}
+    for uk in (None, False):
+        ct = CoupledTrigger(grid, use_kernels=uk, device=dev)
+        pipe = TriggerPipeline(grid, device=dev, use_kernels=uk)
+        st_c = st_p = TriggerState(14, *(torch.as_tensor(a, device=dev)
+                                         for a in (ws, ws, -ws)))
+        b4 = ring_trigger_cuda_padded.launches
+        outs = []
+        for t in range(3):
+            cd = ct.prepare_mask(lsm, ci[t])
+            st_c, oc = ct.physics(st_c, p3, u[t], v[t], theta[t], z, std, cd)
+            st_p, op = pipe.step(st_p, theta[t], u[t], v[t], lsm, z, std,
+                                 pres, ci=ci[t])
+            outs.append((oc, op))
+        assert ring_trigger_cuda_padded.launches - b4 == (6 if uk is None
+                                                           else 0)
+        runs[uk] = (outs, st_c, st_p)
+    for (kc, kp), (pc, pp) in zip(runs[None][0], runs[False][0]):
+        for key in pc:
+            _close(kc[key], pc[key], key)
+            _close(kp[key], pp[key], key)
+    for i in (1, 2):
+        for key in ("windspeed", "winddir"):
+            torch.testing.assert_close(getattr(runs[None][i], key),
+                                       getattr(runs[False][i], key), rtol=0,
+                                       atol=0)
+
+    fused = TriggerPipeline(grid, device=dev, distance_impl="fused")
+    default = TriggerPipeline(grid, device=dev)
+    lsm_d, ci_d = torch.as_tensor(lsm, device=dev), torch.as_tensor(
+        ci, device=dev)
+    torch.testing.assert_close(fused.distance_field(lsm_d, ci_d[1]),
+                               default.distance_field(lsm_d, ci_d[1]),
+                               rtol=0, atol=0)
+    b3 = min_haversine_param_cuda.launches
+    fin = [p.run(TriggerState.zeros(lsm.shape, dev), theta, u, v, lsm, z,
+                 std, pres, ci_t=ci) for p in (fused, default)]
+    assert min_haversine_param_cuda.launches - b3 == len(ci)
+    for key in fin[1][1]:
+        torch.testing.assert_close(fin[0][1][key], fin[1][1][key], rtol=0,
+                                   atol=0)

@@ -244,7 +244,8 @@ def test_state_round_trip_is_bit_equal():
 
 def test_port_imports_without_jax():
     """Every module of the port imports with jax and the JAX package
-    blocked."""
+    blocked, the coupling layer, the tracer and the dummy model among
+    them."""
     code = """
 import sys, pkgutil, importlib
 sys.modules['jax'] = None
@@ -256,9 +257,12 @@ for n in names:
     importlib.import_module(n)
 loaded = {k.split('.')[0] for k, v in sys.modules.items() if v is not None}
 assert not loaded & {'jax', 'seabreeze_param_tpu'}, loaded
+want = {pkg.__name__ + '.' + n for n in (
+    'coupling', 'utils.tracing', 'examples.dummy_model')}
+assert want <= set(names), sorted(want - set(names))
 print(len(names))
 """
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.strip()) >= 12
+    assert int(res.stdout.strip()) >= 17
