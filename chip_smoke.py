@@ -10,9 +10,15 @@ world, then drives ``diag`` once at global 0.25 degrees (721 x 1440, 4
 levels, 32 steps, moving polar sea ice) and holds it against the plain path.
 Then the per-step paths, each against its plain version: the coupling API
 (``CoupledTrigger``, kernel B4, with B5 alone on the same steps), the fused
-distance (``distance_impl='fused'``, kernel B3) and the dummy model.  Each
-path's launch counts are zeroed just before it runs and read just after.
-Any failed check raises, so the exit code is non-zero.
+distance (``distance_impl='fused'``, kernel B3) and the dummy model.  Then
+the decomposed run on a 2 x 4 mesh of the one card: the halo exchange B6
+alone against its plain version at the shard shapes of 0.25 and 0.1 deg,
+``ShardedPipeline.run`` for 16 steps of the main world, overlapped (B6 +
+B2 + B1) against the single-device run and its own plain path, basic (B6 +
+B2 + B4) against overlapped, ``diag(mesh='2x4')`` against ``diag()``, and
+the dummy model's ``--sharded``.  Each path's launch counts are zeroed
+just before it runs and read just after.  Any failed check raises, so the
+exit code is non-zero.
 
 Output: a line with the card's name and power limit (``nvidia-smi``), one
 line per phase, a JSON line ``{"kernels": [...]}`` with each kernel's
@@ -35,6 +41,11 @@ BIG = np.float32(1.0e30)
 #: The coupled phases' 8 steps of the main world: its ice edge moves at
 #: steps 8, 16 and 24.
 COUPLED_STEPS = tuple(range(0, 32, 4))
+#: The decomposed phases: a 2 x 4 mesh, the main world's first 16 steps (its
+#: ice edge moves once, at step 8).
+SHARD_MESH, SHARD_STEPS = "2x4", 16
+#: The halo exchange's (lat_fill, exact_lon) combinations on the path.
+HALO_FILLS = (("clamp", True), ("clamp", False), ("zero", False))
 
 
 def log(msg):
@@ -355,6 +366,8 @@ def kernel_wrappers():
     kernel of the port."""
     from seabreeze_param_tpu_torch.ops.cuda.distance_kernel import (
         min_haversine_param_cuda, pass2_min_cuda)
+    from seabreeze_param_tpu_torch.ops.cuda.halo_kernel import (
+        halo_exchange_cuda)
     from seabreeze_param_tpu_torch.ops.cuda.ring_kernel import (
         ring_thc_cuda_padded, ring_trigger_cuda_padded,
         ring_trigger_cuda_stacked)
@@ -362,7 +375,8 @@ def kernel_wrappers():
             "ring_trigger_stacked": ring_trigger_cuda_stacked,
             "min_haversine": min_haversine_param_cuda,
             "ring_trigger_padded": ring_trigger_cuda_padded,
-            "ring_thc": ring_thc_cuda_padded}
+            "ring_thc": ring_thc_cuda_padded,
+            "halo_exchange": halo_exchange_cuda}
 
 
 def zero_launches():
@@ -667,6 +681,248 @@ def phase_dummy(out):
     out.update(launches=launches, ms_per_step=kms)
 
 
+def shard_mesh_and_shape(name):
+    """The 2 x 4 mesh on the card and the (h, w) shard of grid ``name``
+    (lat replication-padded to a multiple of the mesh rows)."""
+    import torch
+    from bench import GRIDS
+    from seabreeze_param_tpu_torch.parallel.mesh import make_mesh
+    mesh = make_mesh(SHARD_MESH, torch.device("cuda"))
+    nlat, nlon = GRIDS[name]
+    return mesh, (-(-nlat // mesh.py), nlon // mesh.px)
+
+
+def phase_halo(name, out):
+    """Kernel B6 alone against its plain version, bit for bit, on random
+    2 x 4 shards of grid ``name``: widths 1, k, NN and NN+k+1 (the path's
+    exchanges) in each fill, and the 2-channel ring inputs at NN."""
+    import torch
+    from seabreeze_param_tpu_torch.models.pipeline import TriggerPipeline
+    from seabreeze_param_tpu_torch.ops.cuda.halo_kernel import (
+        halo_exchange_cuda)
+    from seabreeze_param_tpu_torch.parallel.halo import halo_exchange_plain
+
+    grid, _, _ = world_grid(name)
+    dev = torch.device("cuda")
+    mesh, (h, w) = shard_mesh_and_shape(name)
+    pipe = TriggerPipeline(grid, device=dev)
+    k, nn = pipe.k, pipe.nn_max
+    gen = torch.Generator(device=dev).manual_seed(4)
+    one = [torch.randn((h, w), generator=gen, device=dev)
+           for _ in range(mesh.size)]
+    two = [torch.randn((2, h, w), generator=gen, device=dev)
+           for _ in range(mesh.size)]
+    rows = {}
+    for local, widths in ((one, (1, k, nn, nn + k + 1)), (two, (nn,))):
+        for width in widths:
+            for fill, exact in HALO_FILLS:
+                kw = dict(lat_fill=fill, exact_lon=exact)
+
+                def kernel():
+                    return halo_exchange_cuda(local, mesh, width, width, **kw)
+
+                def plain():
+                    return halo_exchange_plain(local, mesh, width, width,
+                                               **kw)
+
+                tag = (f"C={local[0].dim() - 1} w={width} {fill}"
+                       f"{' exact' if exact else ''}")
+                for s, (g, r) in enumerate(zip(kernel(), plain())):
+                    bit_equal(g, r, f"B6 {name} {tag} shard {s}")
+                rows[tag] = dict(ms=cuda_ms(kernel), plain_ms=cuda_ms(plain))
+    ref = rows[f"C=1 w={nn} clamp"]          # theta's exchange, every step
+    log(f"# B6 halo_exchange {name} on {SHARD_MESH} ({h}x{w} shards, k={k} "
+        f"NN={nn}): bit-equal to plain at every width and fill; ms kernel "
+        f"vs plain: " + "; ".join(f"{t} {m['ms']:.4f} vs {m['plain_ms']:.4f}"
+                                   for t, m in rows.items()))
+    out[name] = dict(max_abs_err=0.0, ms=ref["ms"], plain_ms=ref["plain_ms"],
+                     shard=[h, w], widths=rows)
+
+
+def outputs_sharded_close(got, ref, what):
+    """``tests/test_sharded.py``'s sharded tolerance: MISSING structure
+    equal, then rtol 1e-5 / atol 1e-4 with under 1e-3 of cells off;
+    returns the largest fraction off."""
+    worst = 0.0
+    for key in ref:
+        g, r = np.asarray(got[key]), np.asarray(ref[key])
+        miss = r == MISSING
+        if g.shape != r.shape or not np.array_equal(g == MISSING, miss):
+            raise AssertionError(f"{what}: {key} shape or MISSING structure")
+        off = float((~np.isclose(g[~miss], r[~miss], rtol=1e-5,
+                                 atol=1e-4)).mean())
+        if off >= 1e-3:
+            raise AssertionError(f"{what}: {key} {off:.3g} of cells off")
+        worst = max(worst, off)
+    return worst
+
+
+def phase_sharded(out):
+    """The decomposed run at global 0.25 deg on a 2 x 4 mesh of the card,
+    16 steps of the main world: overlapped on the kernel path (B6 + B2 +
+    B1) against the single-device kernel run (sharded tolerance) and its
+    own plain path (final wind bit-equal), then basic (B6 + B2 + B4)
+    bit-equal to overlapped."""
+    import torch
+    from seabreeze_param_tpu_torch.core.state import TriggerState
+    from seabreeze_param_tpu_torch.models.pipeline import TriggerPipeline
+    from seabreeze_param_tpu_torch.parallel.sharded import ShardedPipeline
+
+    dev = torch.device("cuda")
+    grid, world = main_world()
+    lsm, z, std, pres, theta, u, v, ci = world
+    T = SHARD_STEPS
+    nlat, nlon = grid.shape
+    d = [torch.as_tensor(a, device=dev) for a in
+         (theta[:T], u[:T], v[:T], lsm, z, std, pres, ci[:T])]
+    mesh, _ = shard_mesh_and_shape("global025")
+    single = TriggerPipeline(grid, device=dev)
+    plain_pipe = TriggerPipeline(grid, device=dev, use_kernels=False)
+    runners = {"overlap": ShardedPipeline(single, mesh),
+               "basic": ShardedPipeline(single, mesh, overlap=False),
+               "plain": ShardedPipeline(plain_pipe, mesh),
+               "single": single}
+    if not runners["overlap"].overlap or runners["plain"].overlap is not True:
+        raise AssertionError("sharded: the overlapped structure was not "
+                             "chosen at global025 on 2x4")
+
+    def run(label):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st, o = runners[label].run(TriggerState.zeros((nlat, nlon), dev),
+                                   *d[:7], ci_t=d[7])
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / T * 1e3
+        return ({k: x.cpu().numpy() for k, x in o.items()}, final_fields(st),
+                ms)
+
+    nn, k = single.nn_max, single.k
+    want = {"overlap": {"halo_exchange": 3 + 2 * T,
+                        "ring_trigger_stacked": mesh.size * T,
+                        "pass2_min": mesh.size * T},
+            "basic": {"halo_exchange": 3 * T,
+                      "ring_trigger_padded": mesh.size * T,
+                      "pass2_min": mesh.size * T}}
+    res, launches = {}, {}
+    for label in ("overlap", "basic", "plain", "single"):
+        run(label)                                  # warm-up
+        zero_launches()
+        res[label] = run(label)
+        launches[label] = {n: c for n, c in read_launches().items() if c}
+        if label in want and launches[label] != want[label]:
+            raise AssertionError(f"sharded {label}: launches "
+                                 f"{launches[label]}, want {want[label]}")
+    if any(launches["plain"].values()):
+        raise AssertionError(f"sharded plain path launched a kernel: "
+                             f"{launches['plain']}")
+    ov, ba, pl, sg = (res[x] for x in ("overlap", "basic", "plain", "single"))
+    off = outputs_sharded_close(ov[0], sg[0], "sharded vs single device")
+    np.testing.assert_allclose(ov[1]["thc"], sg[1]["thc"], rtol=1e-6,
+                               atol=1e-5)
+    np.testing.assert_allclose(ov[1]["windspeed"], sg[1]["windspeed"],
+                               rtol=1e-6, atol=1e-5)
+    np.testing.assert_allclose(ov[1]["winddir"], sg[1]["winddir"], rtol=1e-5,
+                               atol=1e-3)
+    worst = check_fields(ov[0], pl[0], "sharded kernel vs plain path")
+    check_fields(ov[1], pl[1], "sharded final state",
+                 bit_state=("windspeed", "winddir"))
+    for key in ov[0]:
+        if not np.array_equal(ov[0][key], ba[0][key]):
+            raise AssertionError(f"sharded basic vs overlapped: {key}")
+    for key in ov[1]:
+        if not torch.equal(ov[1][key], ba[1][key]):
+            raise AssertionError(f"sharded basic vs overlapped state: {key}")
+    sb = ov[0]["sb_con"]
+    if sb.shape != (T, nlat, nlon) or not np.isfinite(sb).all():
+        raise AssertionError("sharded: sb_con shape or finiteness")
+    log(f"# sharded global025 on {SHARD_MESH} (T={T}, k={k}, NN={nn}, moving "
+        f"ice), ShardedPipeline.run with inputs resident, ms/step: "
+        f"overlapped kernel path {ov[2]:.3f}, basic kernel path "
+        f"{ba[2]:.3f}, overlapped plain path {pl[2]:.3f}, single-device "
+        f"kernel run {sg[2]:.3f}; launches {launches['overlap']} "
+        f"(overlapped), {launches['basic']} (basic); matches the single "
+        f"device (largest fraction off {off:.3g}) and the plain path (max "
+        f"|diff| {worst:.3g}, final ws/wd bit-equal); basic bit-equal to "
+        f"overlapped")
+    out.update(launches=launches, ms_per_step={x: res[x][2] for x in res})
+
+
+def phase_diag_mesh(out):
+    """``diag(mesh='2x4')`` with host arrays against ``diag()`` in the same
+    call, 16 steps of the main world."""
+    import torch
+    from seabreeze_param_tpu_torch.api import diag
+
+    grid, (lsm, z, std, pres, theta, u, v, ci) = main_world()
+    T = SHARD_STEPS
+    args = (1, lsm, z, std, grid.lon, grid.lat, pres, u[:T], v[:T],
+            theta[:T], ci[:T])
+
+    def run(**kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = diag(*args, device="cuda", full_output=True, **kw)
+        torch.cuda.synchronize()
+        return r, (time.perf_counter() - t0) / T * 1e3
+
+    run(mesh=SHARD_MESH)                             # warm-up
+    zero_launches()
+    meshed, mms = run(mesh=SHARD_MESH)
+    launches = {n: c for n, c in read_launches().items() if c}
+    want = {"halo_exchange": 3 + 2 * T, "ring_trigger_stacked": 8 * T,
+            "pass2_min": 8 * T + 1}                 # + the ring probe
+    if launches != want:
+        raise AssertionError(f"diag mesh launches {launches}, want {want}")
+    run()                                            # warm-up
+    single, sms = run()
+    if meshed[0] != single[0] or meshed[0] != 1 + T:
+        raise AssertionError("diag mesh: tt differs")
+    off = outputs_sharded_close(meshed[5], single[5], "diag mesh vs diag")
+    log(f"# diag(mesh='{SHARD_MESH}') global025 T={T}, host arrays: "
+        f"{mms:.3f} ms/step, diag() {sms:.3f} ms/step in the same call; "
+        f"launches {launches}; matches diag() (largest fraction off "
+        f"{off:.3g})")
+    out.update(launches=launches, ms_per_step=mms, single_ms_per_step=sms)
+
+
+def phase_dummy_sharded(out):
+    """The dummy model's ``--sharded --mesh=2x4`` (static coastline,
+    overlapped), kernel path against plain."""
+    import torch
+    from seabreeze_param_tpu_torch.examples import dummy_model
+
+    steps, dev = 12, "cuda"
+    dummy_model.main([f"--steps={steps}", f"--device={dev}", "--sharded",
+                      f"--mesh={SHARD_MESH}"])      # the CLI, and warm-up
+    zero_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    kfin, ksb = dummy_model.run(steps=steps, sharded=True, mesh=SHARD_MESH,
+                                device=dev)
+    torch.cuda.synchronize()
+    kms = (time.perf_counter() - t0) / steps * 1e3
+    launches = {n: c for n, c in read_launches().items() if c}
+    want = {"halo_exchange": 4 + steps, "ring_trigger_stacked": 8 * steps,
+            "pass2_min": 8}
+    if launches != want:
+        raise AssertionError(f"dummy sharded launches {launches}, want "
+                             f"{want}")
+    pfin, psb = dummy_model.run(steps=steps, sharded=True, mesh=SHARD_MESH,
+                                device=dev, use_kernels=False)
+    if ksb.shape != (steps, dummy_model.NY, dummy_model.NX) or not \
+            torch.isfinite(ksb).all():
+        raise AssertionError("dummy sharded: sb_con shape or finiteness")
+    worst = check_fields({"sb_con": ksb.cpu()}, {"sb_con": psb.cpu()},
+                         "dummy sharded sb_con")
+    check_fields(final_fields(kfin), final_fields(pfin),
+                 "dummy sharded final state",
+                 bit_state=("windspeed", "winddir"))
+    log(f"# dummy model --sharded --mesh={SHARD_MESH} ({steps} steps): "
+        f"kernel path {kms:.3f} ms/step; launches {launches}; matches plain "
+        f"(max |diff| {worst:.3g}, final ws/wd bit-equal)")
+    out.update(launches=launches, ms_per_step=kms)
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -684,16 +940,21 @@ def main():
 
     b2, b1, padded, main_out = {}, {}, {}, {}
     coupling, fused, dummy = {}, {}, {}
+    b6, sharded, diag_mesh, dummy_sharded = {}, {}, {}, {}
     phase_build()
     for name in ("global025", "global010"):
         phase_pass2(name, b2)
         phase_ring(name, b1)
         phase_padded(name, padded)
+        phase_halo(name, b6)
     phase_golden()
     phase_main(main_out)
     phase_coupling(coupling)
     phase_fused(fused)
     phase_dummy(dummy)
+    phase_sharded(sharded)
+    phase_diag_mesh(diag_mesh)
+    phase_dummy_sharded(dummy_sharded)
 
     def per_kernel(name):
         return {g: padded[g][name] for g in padded}
@@ -716,7 +977,10 @@ def main():
              "coupling: CoupledTrigger.physics"),
             ("ring_thc", "ring_trigger.cu", "ring_kernel.py:194",
              per_kernel("ring_thc"), coupling["b5_launches"],
-             "standalone op on the coupled steps")):
+             "standalone op on the coupled steps"),
+            ("halo_exchange", "halo_exchange.cu", "halo_kernel.py:183", b6,
+             sharded["launches"]["overlap"]["halo_exchange"],
+             f"sharded: ShardedPipeline.run on {SHARD_MESH}, overlapped")):
         m = meas["global025"]
         kernels.append(dict(
             name=name, route="cuda", source=src + cu, replaces=pal + replaces,

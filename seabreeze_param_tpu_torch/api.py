@@ -7,9 +7,13 @@
 Same positional order, keyword names and defaults, returns, state threading
 and warnings as the reference (``python_wrapper/seabreezediag/
 __init__.py:91-263``), on top of :class:`models.pipeline.TriggerPipeline`.
-Extensions: ``device`` (the card by default), ``use_kernels`` and
-``full_output``.  Returns host float32 arrays; ``thc`` is, as in the
-reference, the sea-level temperature t0.
+Extensions: ``device`` (the card by default), ``use_kernels``,
+``full_output`` and ``mesh`` — the decomposed run
+(:class:`parallel.sharded.ShardedPipeline`) with every shard on ``device``:
+``None`` (default, no decomposition), ``'auto'``, ``'PYxPX'``, a
+``(py, px)`` tuple or a :class:`parallel.mesh.ShardMesh`.  Returns host
+float32 arrays; ``thc`` is, as in the reference, the sea-level temperature
+t0.
 """
 from __future__ import annotations
 
@@ -29,7 +33,8 @@ _PARAM_KEYS = ("target_plev", "thresh_wind", "thresh_winddir",
                "thresh_windch", "thresh_thc", "target_time", "timestep",
                "maxdist")
 
-#: Pipelines keyed by (grid, params, device, kernels, ring bound), and the
+#: Pipelines keyed by (grid, params, device, kernels, ring bound, and for a
+#: decomposed run the mesh shape and device), and the
 #: sticky ring bound per (grid, params, device, kernels); least recently used
 #: entries go first.  A pipeline caches its device distance tables, so a
 #: batch run over many files on one grid builds them once.
@@ -114,11 +119,11 @@ def diag(tt, lsm, z, std, lon, lat, pres, *args, **kwargs):
     params = Params(**{k: kwargs.pop(k) for k in _PARAM_KEYS if k in kwargs})
     if kwargs:
         raise TypeError(f"unknown keyword arguments: {sorted(kwargs)}")
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh= (the decomposed multi-device run) is not ported yet: "
-            "ROADMAP.md queue 1, the parallel item")
     device = torch.device(device)
+    if mesh is not None:
+        from .parallel.mesh import ShardMesh, make_mesh
+        if not isinstance(mesh, ShardMesh):
+            mesh = make_mesh(mesh, device=device)
 
     tt = max(1, int(tt))
     shape = np.asarray(lsm).shape
@@ -201,6 +206,12 @@ def diag(tt, lsm, z, std, lon, lat, pres, *args, **kwargs):
                                             ring_nn=ring_nn, device=device,
                                             use_kernels=use_kernels))
 
+    if mesh is not None:
+        from .parallel.sharded import ShardedPipeline
+        run_pipe = pipe
+        pipe = _cached_pipeline(
+            base_key + ("sharded", ring_nn, mesh.shape, str(mesh.device)),
+            lambda: ShardedPipeline(run_pipe, mesh))
     final, outs = pipe.run(state, t, u, v, lsm_d, z, std, pres, ci_t=ci)
     _, thc_o, ws_o, wd_o = final.to_numpy()
     ret = (tt + T, outs["sb_con"].cpu().numpy(), thc_o, ws_o, wd_o)

@@ -10,10 +10,13 @@ the coupling contract: every atmosphere step runs
 before the next dynamics step, threading the trigger state forward.  Here a
 toy "dynamics" (advecting temperature, rotating wind) in torch alternates
 with ``TriggerPipeline.step`` (kernels B2 and B4 on the card), on the
-reference dummy grid (nx=128, ny=96, 8 pressure levels).
+reference dummy grid (nx=128, ny=96, 8 pressure levels).  ``--sharded``
+runs the decomposed pipeline instead (``ShardedPipeline.run`` over the
+fields repeated ``steps`` times, static coastline, as the JAX example does)
+on a ``--mesh=PYxPX`` mesh of one device (default ``auto``).
 
 Run:  python -m seabreeze_param_tpu_torch.examples.dummy_model [--steps=N]
-      [--device=cpu]
+      [--device=cpu] [--sharded [--mesh=2x4]]
 """
 from __future__ import annotations
 
@@ -64,21 +67,29 @@ def atmos_step(state, theta, u, v, pipe, fields_static):
     return (new_state, theta, u, v), outs["sb_con"]
 
 
-def run(steps=12, sharded=False, device="cuda", use_kernels=None):
-    """``steps`` coupled steps from :func:`init_fields`.  Returns the final
-    state and the (steps, NY, NX) stack of sb_con, on ``device``."""
+def run(steps=12, sharded=False, device="cuda", use_kernels=None,
+        mesh="auto"):
+    """``steps`` coupled steps from :func:`init_fields` (``sharded``: the
+    decomposed run on ``mesh``).  Returns the final state and the
+    (steps, NY, NX) stack of sb_con, on ``device``."""
     from ..core.grid import Grid
     from ..core.state import TriggerState
     from ..models.pipeline import TriggerPipeline
 
-    if sharded:
-        raise NotImplementedError(
-            "--sharded (the decomposed multi-device run) is not ported yet: "
-            "ROADMAP.md queue 1, the parallel item")
     dev = torch.device(device)
     f = init_fields()
     grid = Grid.regular(NY, NX, lat0=60.0, lat1=-60.0)
     pipe = TriggerPipeline(grid, device=dev, use_kernels=use_kernels)
+    if sharded:
+        from ..parallel.mesh import make_mesh
+        from ..parallel.sharded import ShardedPipeline
+        sp = ShardedPipeline(pipe, make_mesh(mesh, device=dev))
+        rep = {k: np.repeat(f[k][None], steps, axis=0)
+               for k in ("theta", "u", "v")}
+        final, outs = sp.run(TriggerState.zeros((NY, NX), dev), rep["theta"],
+                             rep["u"], rep["v"], f["land_frac"], f["z"],
+                             f["sigma"], f["p"])
+        return final, outs["sb_con"]
     statics = tuple(torch.as_tensor(f[k], device=dev) for k in
                     ("land_frac", "z", "sigma", "p", "ice_frac"))
     carry = (TriggerState.zeros((NY, NX), dev),
@@ -91,18 +102,20 @@ def run(steps=12, sharded=False, device="cuda", use_kernels=None):
 
 
 def main(argv):
-    steps, sharded, device = 12, False, "cuda"
+    steps, sharded, device, mesh = 12, False, "cuda", "auto"
     for arg in argv:
         if arg.startswith("--steps="):
             steps = int(arg.split("=")[1])
         elif arg.startswith("--device="):
             device = arg.split("=")[1]
+        elif arg.startswith("--mesh="):
+            mesh = arg.split("=")[1]
         elif arg == "--sharded":
             sharded = True
         else:
             raise SystemExit(f"unknown argument {arg!r}")
     t0 = time.time()
-    final, sb = run(steps=steps, sharded=sharded, device=device)
+    final, sb = run(steps=steps, sharded=sharded, device=device, mesh=mesh)
     sb = sb.cpu().numpy()
     active = sb[sb < 1.0e19]
     print(f"{steps} coupled steps on {NY}x{NX} ({device}) in "

@@ -60,6 +60,9 @@ SIGNATURES = {
                                 _F, _F, _F, _F, _F, _P),
     # t0_pad, cd_pad, cd, n_thc, h, w, nn, maxdist, stream
     "sbz_ring_thc_padded": (_P, _P, _P, _P, _I, _I, _I, _F, _P),
+    # src[S], dst[S] (host pointer arrays), py, px, c, h, w, hy, hx,
+    # zero_fill, exact_lon, stream
+    "sbz_halo_exchange": (_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
 }
 
 #: Seconds the last build took in this process (0.0 when it was cached).

@@ -66,10 +66,14 @@ class StackedScan:
         self.ever = torch.zeros(int(np.prod(tile_grid(h, w))),
                                 dtype=torch.uint8, device=self.device)
 
-    def init_buffers(self, T: int, windspeed0, winddir0):
-        """Pre-filled (sb, ws, wd) stacks of shape (T, h, w)."""
+    def init_buffers(self, T: int, windspeed0, winddir0, *,
+                     row_offset: int = 0, nlat_total: int | None = None):
+        """Pre-filled (sb, ws, wd) stacks of shape (T, h, w); a shard's
+        block passes its ``row_offset`` in the ``nlat_total``-row grid, so
+        the unwritten last row is the global one."""
         from ..trigger import row_mask
-        row_ok = row_mask(self.h, self.params, self.device)
+        row_ok = row_mask(self.h, self.params, self.device, row_offset,
+                          nlat_total)
         shape = (T, self.h, self.w)
         sb = torch.where(row_ok, float(MISSING_VALUE), 0.0)
         ws = torch.where(row_ok, windspeed0, 0.0)
@@ -85,7 +89,9 @@ class StackedScan:
 def ring_trigger_cuda_stacked(t0_pad, cd_pad, cd_center, ws_new, wd_new,
                               ws_state, wd_state, is_first: bool, upd: bool,
                               params: Params, nn_max: int, step_idx: int,
-                              sb_buf, ws_buf, wd_buf, ever):
+                              sb_buf, ws_buf, wd_buf, ever, *,
+                              row_offset: int = 0,
+                              nlat_total: int | None = None):
     """Ring search + trigger tail for one step, written IN PLACE.
 
     ``t0_pad``/``cd_pad`` (h+2NN, w+2NN); ``cd_center``, ``ws_new``,
@@ -93,7 +99,9 @@ def ring_trigger_cuda_stacked(t0_pad, cd_pad, cd_center, ws_new, wd_new,
     ``wd_buf`` (T, h, w); ``ever`` the (ni*nj,) uint8 tile mask of
     :class:`StackedScan`.  Slot ``step_idx`` of the three stacks is
     overwritten on the tiles set in ``ever``, and ``ws_state``/``wd_state``
-    are updated in place there; everything else keeps its contents.
+    are updated in place there; everything else keeps its contents.  The
+    field is rows ``row_offset``.. of an ``nlat_total``-row grid (default:
+    the whole grid), which places the reference's unwritten last row.
 
     A CUDA tensor launches the kernel on the current stream (one launch,
     counted in ``ring_trigger_cuda_stacked.launches``); a CPU tensor takes
@@ -103,11 +111,14 @@ def ring_trigger_cuda_stacked(t0_pad, cd_pad, cd_center, ws_new, wd_new,
     NN = int(nn_max)
     h, w = cd_center.shape
     step_idx = int(step_idx)
+    row_offset = int(row_offset)
+    nlat_total = h if nlat_total is None else int(nlat_total)
     if t0_pad.device.type == "cpu":
         from ..trigger import trigger_cells
         sb, out_ws, out_wd, ws_st, wd_st = trigger_cells(
             cd_center, ws_new, wd_new, ws_state, wd_state, t0_pad, cd_pad,
-            is_first, upd, params, NN)
+            is_first, upd, params, NN, row_offset=row_offset,
+            nlat_total=nlat_total)
         sb_buf[step_idx] = sb
         ws_buf[step_idx] = out_ws
         wd_buf[step_idx] = out_wd
@@ -137,9 +148,7 @@ def ring_trigger_cuda_stacked(t0_pad, cd_pad, cd_center, ws_new, wd_new,
             ws_new.data_ptr(), wd_new.data_ptr(), ws_state.data_ptr(),
             wd_state.data_ptr(), ever.data_ptr(), sb_buf.data_ptr(),
             ws_buf.data_ptr(), wd_buf.data_ptr(), h, w, NN, step_idx,
-            # row offset 0 of an nlat_total = h grid: this field is the
-            # whole grid (a decomposed run would pass its block's)
-            int(bool(is_first)), int(bool(upd)), 0, h,
+            int(bool(is_first)), int(bool(upd)), row_offset, nlat_total,
             int(bool(params.skip_last_lat_row)), *(
                 float(f32(x)) for x in (
                     params.maxdist, params.thresh_wind, params.thresh_winddir,
@@ -163,28 +172,33 @@ def _require_pads(t0_pad, cd_pad, cd_center, NN: int):
 
 def ring_trigger_cuda_padded(t0_pad, cd_pad, cd_center, ws_new, wd_new,
                              ws_state, wd_state, is_first: bool, upd: bool,
-                             params: Params, nn_max: int):
+                             params: Params, nn_max: int, *,
+                             row_offset: int = 0,
+                             nlat_total: int | None = None):
     """Kernel B4: ring search + trigger tail for one step over every tile.
 
     ``t0_pad``/``cd_pad`` (h+2NN, w+2NN); ``cd_center``, ``ws_new``,
     ``wd_new``, ``ws_state``, ``wd_state`` (h, w).  Returns ``(sb, ws', wd')``
     (h, w): the step's sb_con (zero in the reference's unwritten last row)
     and the new wind state (frozen in that row).  The inputs are not
-    modified.
+    modified.  ``row_offset``/``nlat_total`` as for B1.
 
     A CUDA tensor launches the kernel on the current stream (one launch,
     counted in ``ring_trigger_cuda_padded.launches``); a CPU tensor takes
     the plain version, ``ops.trigger.trigger_cells``.
     """
     NN = int(nn_max)
+    row_offset = int(row_offset)
     if t0_pad.device.type == "cpu":
         from ..trigger import trigger_cells
         sb, _, _, ws_st, wd_st = trigger_cells(
             cd_center, ws_new, wd_new, ws_state, wd_state, t0_pad, cd_pad,
-            is_first, upd, params, NN)
+            is_first, upd, params, NN, row_offset=row_offset,
+            nlat_total=nlat_total)
         return sb, ws_st, wd_st
 
     h, w, dev = _require_pads(t0_pad, cd_pad, cd_center, NN)
+    nlat_total = h if nlat_total is None else int(nlat_total)
     for name, t in (("ws_new", ws_new), ("wd_new", wd_new),
                     ("ws_state", ws_state), ("wd_state", wd_state)):
         _build.require(t, name, (h, w), dev)
@@ -198,8 +212,7 @@ def ring_trigger_cuda_padded(t0_pad, cd_pad, cd_center, ws_new, wd_new,
             ws_new.data_ptr(), wd_new.data_ptr(), ws_state.data_ptr(),
             wd_state.data_ptr(), sb.data_ptr(), ws_o.data_ptr(),
             wd_o.data_ptr(), h, w, NN, int(bool(is_first)), int(bool(upd)),
-            # row offset 0 of an nlat_total = h grid, as in B1
-            0, h, int(bool(params.skip_last_lat_row)), *(
+            row_offset, nlat_total, int(bool(params.skip_last_lat_row)), *(
                 float(f32(x)) for x in (
                     params.maxdist, params.thresh_wind, params.thresh_winddir,
                     params.thresh_windch, params.thresh_thc)),

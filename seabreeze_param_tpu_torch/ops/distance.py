@@ -175,17 +175,25 @@ def coast_distance(coast, lsm, grid: Grid, maxdist: float = 180.0, *,
     k_eff = effective_radius(grid, maxdist, k)
     if tables is None:
         tables = device_tables(grid, k_eff, coast.device)
+    return coast_distance_from_padded(pad_coast(coast, k_eff), lsm, tables,
+                                      k_eff, maxdist, impl=impl)
+
+
+def coast_distance_from_padded(cpad, lsm, tables, k: int,
+                               maxdist: float = 180.0, *, impl: str = "auto"):
+    """The signed distance of one block from its k-padded coast ``cpad``
+    (h+2k, w+2k) and the block's own table rows and columns ``tables`` =
+    (sdphi2 (h, 2k+1), po (h, 2k+1), sdlam2 (w, 2k+1)), contiguous; ``impl``
+    as in :func:`coast_distance`.  A decomposed run's shards call it with
+    an exchanged or apron-computed pad and their slices of the tables."""
     sdphi2, po, sdlam2 = tables
-    impl = resolve_impl(impl, coast.device)
-    cpad = pad_coast(coast, k_eff)
+    impl = resolve_impl(impl, cpad.device)
     if impl == "fused":
         from .cuda.distance_kernel import min_haversine_param_cuda
-        amin = min_haversine_param_cuda(cpad, sdphi2, po, sdlam2, k_eff)
+        amin = min_haversine_param_cuda(cpad, sdphi2, po, sdlam2, k)
     elif impl == "hybrid":
         from .cuda.distance_kernel import pass2_min_cuda
-        amin = pass2_min_cuda(pass1_extrema(cpad, sdlam2, k_eff), sdphi2, po,
-                              k_eff)
+        amin = pass2_min_cuda(pass1_extrema(cpad, sdlam2, k), sdphi2, po, k)
     else:
-        amin = min_haversine_param_from_padded(cpad, sdphi2, po, sdlam2,
-                                               k_eff)
+        amin = min_haversine_param_from_padded(cpad, sdphi2, po, sdlam2, k)
     return finalize_distance(amin, lsm, maxdist)

@@ -16,6 +16,12 @@ per-cell core:
 * :func:`trigger_step_stacked` / :func:`trigger_core_stacked` — the
   production scan: kernel B1 writes slot t of preallocated (T, h, w)
   stacks and updates the wind state in place.
+
+A decomposed run (``parallel.sharded``) calls the cores per shard with the
+shard's ``row_offset`` in the ``nlat_total``-row grid, which places the
+reference's unwritten last row; its basic step is
+:func:`trigger_step_shards`, one exchange of the ring inputs for all
+shards.
 """
 from __future__ import annotations
 
@@ -64,19 +70,28 @@ def cadence(tt: int, params: Params):
     return tt < 2, bool(upd)
 
 
-def row_mask(h: int, params: Params, device):
-    """(h, 1) bool: rows the reference writes (``do i=1,nlats-1``)."""
-    last = h - 1 if params.skip_last_lat_row else h
-    return (torch.arange(h, device=device) < last)[:, None]
+def row_mask(h: int, params: Params, device, row_offset: int = 0,
+             nlat_total: int | None = None):
+    """(h, 1) bool: rows the reference writes (``do i=1,nlats-1``) of a
+    block whose first row is global row ``row_offset`` of an
+    ``nlat_total``-row grid (default: the block is the grid).  Rows at or
+    beyond ``nlat_total`` (a decomposed grid's lat padding) are out too,
+    as in kernels B1 and B4."""
+    nlat = h if nlat_total is None else nlat_total
+    last = nlat - 1 if params.skip_last_lat_row else nlat
+    return (torch.arange(row_offset, row_offset + h, device=device)
+            < last)[:, None]
 
 
 def trigger_cells(cdist, ws_new, wd_new, ws_state, wd_state, t0_pad, cd_pad,
-                  is_first: bool, upd: bool, params: Params, nn_max: int):
+                  is_first: bool, upd: bool, params: Params, nn_max: int, *,
+                  row_offset: int = 0, nlat_total: int | None = None):
     """The plain version of kernels B1 and B4: ring THC and trigger tail
     for every cell.  Returns ``(sb, ws_out, wd_out, ws_state',
     wd_state')``: the three output fields of the step (zero in the
     reference's unwritten last row) and the new wind state (frozen in that
-    row)."""
+    row).  ``row_offset``/``nlat_total`` place the block in the global grid
+    (:func:`row_mask`)."""
     coastal = cdist.abs() <= float(np.float32(params.maxdist))
     mul = torch.where(cdist >= 0.0, 1.0, -1.0)
     n_thc, _ = ring_thc_from_padded(ring_quantities(t0_pad, cd_pad), mul,
@@ -109,7 +124,8 @@ def trigger_cells(cdist, ws_new, wd_new, ws_state, wd_state, t0_pad, cd_pad,
     ws_o = torch.where(take, ws_new, ws_state)
     wd_o = torch.where(take, wd_new, wd_state)
 
-    row_ok = row_mask(cdist.shape[0], params, cdist.device)
+    row_ok = row_mask(cdist.shape[0], params, cdist.device, row_offset,
+                      nlat_total)
     return (torch.where(row_ok, sb, 0.0), torch.where(row_ok, ws_o, 0.0),
             torch.where(row_ok, wd_o, 0.0),
             torch.where(row_ok, ws_o, ws_state),
@@ -117,18 +133,21 @@ def trigger_cells(cdist, ws_new, wd_new, ws_state, wd_state, t0_pad, cd_pad,
 
 
 def trigger_core(state: TriggerState, t0, cdist, ws_new, wd_new, t0_pad,
-                 cd_pad, params: Params, nn_max: int, *,
+                 cd_pad, params: Params, nn_max: int, *, row_offset: int = 0,
+                 nlat_total: int | None = None,
                  use_kernels: bool | None = None):
     """The per-cell part of a timestep from pre-padded ring inputs.
     Returns ``(new_state, outputs)`` with outputs the four reference slots
     ``sb_con``, ``t0``, ``windspeed``, ``winddir``.  The threaded ``thc``
     slot carries t0 (reference convention).  ``state`` is not modified.
+    ``row_offset``/``nlat_total`` place a shard's block in the global grid
+    (:func:`row_mask`).
 
     ``use_kernels`` (the JAX package's ``use_pallas``) — None: kernel B4 for
     a CUDA tensor, the plain path for a CPU tensor; True: B4 through its
     wrapper; False: the plain path (:func:`trigger_cells`)."""
     is_first, upd = cadence(state.tt, params)
-    row_ok = row_mask(t0.shape[0], params, t0.device)
+    row_ok = row_mask(t0.shape[0], params, t0.device, row_offset, nlat_total)
     if use_kernels is None:
         use_kernels = t0.device.type == "cuda"
     if use_kernels:
@@ -137,13 +156,15 @@ def trigger_core(state: TriggerState, t0, cdist, ws_new, wd_new, t0_pad,
         # output slots are zero there, as the plain path's.
         sb, ws_st, wd_st = ring_trigger_cuda_padded(
             t0_pad, cd_pad, cdist, ws_new, wd_new, state.windspeed,
-            state.winddir, is_first, upd, params, nn_max)
+            state.winddir, is_first, upd, params, nn_max,
+            row_offset=row_offset, nlat_total=nlat_total)
         out_ws = torch.where(row_ok, ws_st, 0.0)
         out_wd = torch.where(row_ok, wd_st, 0.0)
     else:
         sb, out_ws, out_wd, ws_st, wd_st = trigger_cells(
             cdist, ws_new, wd_new, state.windspeed, state.winddir, t0_pad,
-            cd_pad, is_first, upd, params, nn_max)
+            cd_pad, is_first, upd, params, nn_max, row_offset=row_offset,
+            nlat_total=nlat_total)
     out_t0 = torch.where(row_ok, t0, 0.0)
     new_state = TriggerState(tt=state.tt + 1, thc=out_t0, windspeed=ws_st,
                              winddir=wd_st)
@@ -175,14 +196,45 @@ def trigger_step(state: TriggerState, theta, u, v, cdist, z, std, pres,
                         params, nn_max, use_kernels=use_kernels)
 
 
+def trigger_step_shards(states, theta, u, v, cdist, z, smods, pres,
+                        params: Params, nn_max: int, *, ring_pad_fn,
+                        row_offsets, nlat_total: int,
+                        use_kernels: bool | None = None):
+    """:func:`trigger_step` over the shards of a mesh, the step of the
+    decomposed basic structure (``parallel.sharded``); the JAX package's
+    ``trigger_step`` with ``ring_pad_fn``.
+
+    Every field argument and ``states`` are lists of shard blocks (``pres``
+    a list too: the 1-D pressure repeated, or 3-D shards); ``smods`` are
+    the sigmoid weights taken over the whole mesh
+    (:func:`ops.orography.sigmoid_weight_shards`, whose ``valid_masks``
+    are the JAX ``valid_mask``).  ``ring_pad_fn(stacks, nn_max)`` exchanges
+    the shards' (2, h, w) ``[t0, cdist]`` stacks, all in one go, and
+    returns the padded stacks; ``row_offsets[i]`` is shard i's first
+    global row of ``nlat_total``.  Returns the lists ``(new_states,
+    outputs)``."""
+    t0 = [sea_level_temperature(*a) for a in zip(theta, z, smods)]
+    wind = [wind_at_level(*a, params.target_plev_pa)
+            for a in zip(u, v, pres)]
+    pads = ring_pad_fn([torch.stack(a) for a in zip(t0, cdist)], nn_max)
+    res = [trigger_core(st, t, cd, ws, wd, pad[0], pad[1], params, nn_max,
+                        row_offset=r0, nlat_total=nlat_total,
+                        use_kernels=use_kernels)
+           for st, t, cd, (ws, wd), pad, r0 in zip(states, t0, cdist, wind,
+                                                   pads, row_offsets)]
+    return [r[0] for r in res], [r[1] for r in res]
+
+
 def trigger_core_stacked(state: TriggerState, t0, cdist, ws_new, wd_new,
                          t0_pad, cd_pad, params: Params, nn_max: int,
-                         step_idx: int, sb_buf, ws_buf, wd_buf, ever):
+                         step_idx: int, sb_buf, ws_buf, wd_buf, ever, *,
+                         row_offset: int = 0, nlat_total: int | None = None):
     """:func:`trigger_core` through kernel B1: writes slot ``step_idx`` of
     the (T, h, w) stacks ``sb_buf``/``ws_buf``/``wd_buf`` and updates
     ``state.windspeed``/``state.winddir`` IN PLACE, visiting only the tiles
     set in ``ever`` (``ops.cuda.ring_kernel.StackedScan``).  Returns
     ``(new_state, out_t0)``; the new state shares the updated wind tensors.
+    ``row_offset``/``nlat_total`` as in :func:`trigger_core`.
     """
     from .cuda.ring_kernel import ring_trigger_cuda_stacked
 
@@ -190,8 +242,9 @@ def trigger_core_stacked(state: TriggerState, t0, cdist, ws_new, wd_new,
     ring_trigger_cuda_stacked(
         t0_pad, cd_pad, cdist, ws_new, wd_new, state.windspeed,
         state.winddir, is_first, upd, params, nn_max, step_idx, sb_buf,
-        ws_buf, wd_buf, ever)
-    out_t0 = torch.where(row_mask(t0.shape[0], params, t0.device), t0, 0.0)
+        ws_buf, wd_buf, ever, row_offset=row_offset, nlat_total=nlat_total)
+    out_t0 = torch.where(row_mask(t0.shape[0], params, t0.device, row_offset,
+                                  nlat_total), t0, 0.0)
     new_state = TriggerState(tt=state.tt + 1, thc=out_t0,
                              windspeed=state.windspeed,
                              winddir=state.winddir)

@@ -305,7 +305,8 @@ def test_dummy_model_matches_jax():
     """The port's dummy model, 3 steps, against the JAX example at the
     tolerances ``test_torch_pipeline.py::test_diag_matches_jax_diag`` holds
     ``diag`` to; kernel route (plain versions on the CPU) equal to the plain
-    route; ``--sharded`` is refused."""
+    route; ``--sharded`` runs (the 1 x 1 mesh of ``'auto'`` on the CPU;
+    ``tests/test_torch_sharded.py`` holds it to JAX on 2 x 4)."""
     sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..",
                                     "examples"))
     import dummy_model as jdummy
@@ -334,8 +335,9 @@ def test_dummy_model_matches_jax():
     torch.testing.assert_close(ksb, torch.as_tensor(sb), rtol=0, atol=0)
     torch.testing.assert_close(kfinal.windspeed, final.windspeed, rtol=0,
                                atol=0)
-    with pytest.raises(NotImplementedError, match="parallel"):
-        tdummy.run(steps=1, sharded=True, device="cpu")
+    sfinal, ssb = tdummy.run(steps=1, sharded=True, device="cpu")
+    assert ssb.shape == (1, tdummy.NY, tdummy.NX) and sfinal.tt == 2
+    assert torch.isfinite(ssb).all()
 
 
 def test_dummy_model_main_prints(capsys):

@@ -9,7 +9,8 @@ Without a CUDA device every test skips: the kernels have no CPU mode.
 Grids include a ragged tile edge (37 x 70) and a grid smaller than one
 tile (10 x 20), whose wrap seam pushes the ring radius up.  Kernels B1 and
 B2 carry ``TriggerPipeline.run``; B3 the fused distance, B4 the per-step
-coupling path, B5 the ring search alone.
+coupling path, B5 the ring search alone, B6 the halo exchange of the
+decomposed run (``ShardedPipeline``), on ragged and 1-wide meshes.
 """
 import numpy as np
 import pytest
@@ -25,6 +26,7 @@ from seabreeze_param_tpu_torch.models.pipeline import TriggerPipeline
 from seabreeze_param_tpu_torch.ops.coastline import get_edges
 from seabreeze_param_tpu_torch.ops.cuda.distance_kernel import (
     min_haversine_param_cuda, pass2_min_cuda)
+from seabreeze_param_tpu_torch.ops.cuda.halo_kernel import halo_exchange_cuda
 from seabreeze_param_tpu_torch.ops.cuda.ring_kernel import (
     StackedScan, ring_thc_cuda_padded, ring_trigger_cuda_padded,
     ring_trigger_cuda_stacked)
@@ -35,6 +37,9 @@ from seabreeze_param_tpu_torch.ops.ring_search import (ring_quantities,
                                                        ring_thc_from_padded)
 from seabreeze_param_tpu_torch.ops.trigger import (cadence, prepare_step,
                                                    trigger_cells)
+from seabreeze_param_tpu_torch.parallel.halo import halo_exchange_plain
+from seabreeze_param_tpu_torch.parallel.mesh import ShardMesh, make_mesh, split
+from seabreeze_param_tpu_torch.parallel.sharded import ShardedPipeline
 
 MISSING = np.float32(2.0e20)
 GRIDS = {
@@ -346,3 +351,154 @@ def test_coupled_paths_match_plain(name, dev):
     for key in fin[1][1]:
         torch.testing.assert_close(fin[0][1][key], fin[1][1][key], rtol=0,
                                    atol=0)
+
+
+#: name -> (mesh shape, field shape): ragged shards (37 x 35 is no multiple
+#: of the kernel's 32 x 8 block), 1-wide mesh axes, one shard.
+HALO_MESHES = {
+    "2x4": ((2, 4), (74, 140)),
+    "3x3": ((3, 3), (33, 99)),
+    "1x7": ((1, 7), (30, 84)),
+    "5x1": ((5, 1), (55, 40)),
+    "1x1": ((1, 1), (37, 70)),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(HALO_MESHES))
+@pytest.mark.parametrize("lat_fill,exact_lon", [("clamp", True),
+                                                ("clamp", False),
+                                                ("zero", False)])
+@pytest.mark.parametrize("channels", [1, 2])
+def test_halo_kernel_bit_equal_to_plain(name, lat_fill, exact_lon, channels,
+                                        dev):
+    """B6 against its plain version, bit for bit, one launch per exchange,
+    at 1-wide, uneven, one-sided and full-shard widths."""
+    (py, px), (nlat, nlon) = HALO_MESHES[name]
+    mesh = make_mesh((py, px), dev)
+    shape = (channels, nlat, nlon) if channels > 1 else (nlat, nlon)
+    field = np.random.default_rng(7).standard_normal(shape)
+    local = split(torch.as_tensor(field.astype(np.float32), device=dev),
+                  mesh)
+    h, w = nlat // py, nlon // px
+    for hy, hx in ((1, 1), (3, 2), (0, 2), (2, 0),
+                   (h, w - 1 if exact_lon else w)):
+        kw = dict(lat_fill=lat_fill, exact_lon=exact_lon)
+        before = halo_exchange_cuda.launches
+        got = halo_exchange_cuda(local, mesh, hy, hx, **kw)
+        assert halo_exchange_cuda.launches == before + 1
+        want = halo_exchange_plain(local, mesh, hy, hx, **kw)
+        for g, r in zip(got, want):
+            torch.testing.assert_close(g, r, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_halo_kernel_refusals(dev):
+    """B6 refuses a halo wider than the shard, other dtypes, non-contiguous
+    or off-device shards, other ranks and more shards than one launch
+    takes, and counts no launch; 64 shards are one launch."""
+    mesh = make_mesh((2, 2), dev)
+    local = split(torch.zeros(8, 12, device=dev), mesh)
+    before = halo_exchange_cuda.launches
+    with pytest.raises(ValueError, match="wider than"):
+        halo_exchange_cuda(local, mesh, 5, 1)
+    with pytest.raises(ValueError, match="dtype"):
+        halo_exchange_cuda([x.double() for x in local], mesh, 1, 1)
+    with pytest.raises(ValueError, match="contiguous"):
+        halo_exchange_cuda([torch.zeros(6, 4, device=dev).t()] * 4, mesh,
+                           1, 1)
+    with pytest.raises(ValueError, match="on cpu"):
+        halo_exchange_cuda(local[:3] + [local[3].cpu()], mesh, 1, 1)
+    with pytest.raises(ValueError, match=r"\(h, w\) or \(C, h, w\)"):
+        halo_exchange_cuda([x[None, None] for x in local], mesh, 1, 1)
+    with pytest.raises(ValueError, match="at most 64"):
+        halo_exchange_cuda([torch.zeros(2, 1, device=dev)] * 65,
+                           ShardMesh(1, 65, mesh.device), 0, 0)
+    assert halo_exchange_cuda.launches == before
+    big = ShardMesh(8, 8, mesh.device)
+    field = torch.arange(16 * 24, dtype=torch.float32,
+                         device=dev).reshape(16, 24)
+    got = halo_exchange_cuda(split(field, big), big, 2, 3)
+    want = halo_exchange_plain(split(field, big), big, 2, 3)
+    assert halo_exchange_cuda.launches == before + 1
+    for g, r in zip(got, want):
+        torch.testing.assert_close(g, r, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(GRIDS))
+@pytest.mark.parametrize("row_offset,extra", [(5, 0), (3, 10), (4, -2)])
+def test_ring_kernels_with_row_offset_match_plain(name, row_offset, extra,
+                                                  dev):
+    """B4 (bit for bit) and B1 (slot within 2e-5/2e-4, state bit-equal) on
+    a block whose first row is global row ``row_offset`` of a grid of
+    ``row_offset + h + extra`` rows: the grid's last row inside the block
+    (0), beyond it (10), or padding rows at its end (-2)."""
+    grid, (lsm, z, std, pres, theta, u, v, ci) = _world(name)
+    params = Params()
+    D = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
+    pipe = TriggerPipeline(grid, device=dev)
+    nn = pipe.nn_max
+    cd = pipe.distance_field(D(lsm), D(ci[1]))
+    _, ws_new, wd_new, t0_pad, cd_pad = prepare_step(
+        D(theta[1]), D(u[1]), D(v[1]), cd, D(z), D(std), D(pres), params, nn)
+    rng = np.random.default_rng(3)
+    ws0 = D((5 + rng.random(lsm.shape)).astype(np.float32))
+    wd0 = D((360 * rng.random(lsm.shape) - 180).astype(np.float32))
+    flags = cadence(15, params)
+    rows = dict(row_offset=row_offset,
+                nlat_total=row_offset + lsm.shape[0] + extra)
+    ref = trigger_cells(cd, ws_new, wd_new, ws0, wd0, t0_pad, cd_pad,
+                        *flags, params, nn, **rows)
+    got = ring_trigger_cuda_padded(t0_pad, cd_pad, cd, ws_new, wd_new, ws0,
+                                   wd0, *flags, params, nn, **rows)
+    for g, want in zip(got, (ref[0], ref[3], ref[4])):
+        torch.testing.assert_close(g, want, rtol=0, atol=0)
+    scan = StackedScan(*lsm.shape, params, dev)
+    bufs = scan.init_buffers(1, ws0, wd0, **rows)
+    ws_s, wd_s = ws0.clone(), wd0.clone()
+    ring_trigger_cuda_stacked(t0_pad, cd_pad, cd, ws_new, wd_new, ws_s, wd_s,
+                              *flags, params, nn, 0, *bufs,
+                              scan.add_coastal(cd), **rows)
+    for b, want, what in zip(bufs, ref, ("sb", "ws", "wd")):
+        _close(b[0], want, what)
+    torch.testing.assert_close(ws_s, ref[3], rtol=0, atol=0)
+    torch.testing.assert_close(wd_s, ref[4], rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mesh_shape", [(2, 4), (1, 8), (3, 2)])
+def test_sharded_kernel_path_matches_plain(mesh_shape, dev):
+    """``ShardedPipeline.run`` on the card, three steps from tt = 14 with
+    ice appearing at step 1 (3 x 2 pads 121 lat rows to 123): the kernel
+    path (B6 + B2 + B1) against the plain path, per-step fields within
+    2e-5/2e-4 and final wind bit-equal; basic (B6 + B2 + B4) bit-equal to
+    overlapped; one B6 launch per exchange, none on the plain path."""
+    grid, (lsm, z, std, pres, theta, u, v, ci) = _world("global121")
+    mesh = make_mesh(mesh_shape, dev)
+    rng = np.random.default_rng(0)
+    ws = (5 + rng.random(lsm.shape)).astype(np.float32)
+    state = TriggerState(14, *(torch.as_tensor(a, device=dev)
+                               for a in (np.zeros_like(ws), ws, -ws)))
+    runs, b6 = {}, {}
+    for label, uk, overlap in (("overlap", None, True), ("basic", None, False),
+                               ("plain", False, True)):
+        sp = ShardedPipeline(TriggerPipeline(grid, device=dev,
+                                             use_kernels=uk), mesh,
+                             overlap=overlap)
+        before = halo_exchange_cuda.launches
+        runs[label] = sp.run(state, theta, u, v, lsm, z, std, pres, ci_t=ci)
+        b6[label] = halo_exchange_cuda.launches - before
+    T = len(theta)
+    assert b6 == {"overlap": 3 + 2 * T, "basic": 3 * T, "plain": 0}
+    (ks, ko), (bs, bo), (ps, po) = (runs[x] for x in ("overlap", "basic",
+                                                      "plain"))
+    for key in po:
+        _close(ko[key], po[key], key)
+        torch.testing.assert_close(bo[key], ko[key], rtol=0, atol=0)
+    for f in ("windspeed", "winddir"):
+        torch.testing.assert_close(getattr(ks, f), getattr(ps, f), rtol=0,
+                                   atol=0)
+        torch.testing.assert_close(getattr(bs, f), getattr(ks, f), rtol=0,
+                                   atol=0)
+    assert ko["sb_con"].shape == (T,) + lsm.shape

@@ -236,9 +236,11 @@ def test_build_key_tracks_sources():
     assert p == _build.library_path()
     assert p.parent == _build.BUILD_DIR and p.parent.name == "kernels"
     assert {s.name for s in _build.SRC_DIR.glob("*.cu")} == {
-        "min_haversine.cu", "pass2_min.cu", "ring_trigger.cu"}
+        "halo_exchange.cu", "min_haversine.cu", "pass2_min.cu",
+        "ring_trigger.cu"}
     assert {"sbz_min_haversine", "sbz_ring_trigger_padded",
-            "sbz_ring_thc_padded"} <= set(_build.SIGNATURES)
+            "sbz_ring_thc_padded", "sbz_halo_exchange"} <= set(
+                _build.SIGNATURES)
 
 
 def _distance_inputs(c):

@@ -125,7 +125,7 @@ def test_single_steps_with_threaded_state_equal_one_call(small_case):
 
 def test_diag_api_probes(small_case):
     """Unknown kwarg, shape errors, missing-state warning, tt clamp, masked
-    sea ice, the unported mesh= branch, and the bounded pipeline cache."""
+    sea ice, the mesh= branch, and the bounded pipeline cache."""
     c = small_case
     base = _args(c, 1)
     with pytest.raises(TypeError, match="bogus"):
@@ -134,8 +134,11 @@ def test_diag_api_probes(small_case):
         diag(*base[:9], c["theta_t"][:1, :, :-2], base[10], device="cpu")
     with pytest.raises(ValueError, match="ci: got"):
         diag(*_args(c, 2)[:10], c["ci_t"][:1], device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        diag(*base, device="cpu", mesh=(2, 2))
+    meshed = diag(*base, device="cpu", mesh=(2, 2))
+    plain = diag(*base, device="cpu")
+    assert meshed[0] == plain[0] == 2
+    np.testing.assert_array_equal(meshed[1] == MISSING, plain[1] == MISSING)
+    np.testing.assert_allclose(meshed[3], plain[3], rtol=1e-6, atol=1e-5)
     with pytest.warns(UserWarning, match="previous timestep"):
         diag(5, *base[1:], device="cpu")
     with warnings.catch_warnings():

@@ -1,16 +1,21 @@
 #!/usr/bin/env python3
 """Where the time of the port's main path goes, on one NVIDIA GPU.
 
-    python3 tools/profile_main_path.py
+    python3 tools/profile_main_path.py [--sharded]
 
 Uses the world of ``chip_smoke.py``'s main phase (global 0.25 deg, 4
-levels, 32 steps, moving polar sea ice) and prints two reports:
+levels, 32 steps, moving polar sea ice) and prints two reports (with
+``--sharded``, the first one alone, for the decomposed run instead:
+``ShardedPipeline.run`` on ``chip_smoke``'s 2 x 4 mesh over its 16 steps,
+overlapped and basic structures on the kernel path):
 
 1. **Resident loop under the profiler.**  ``TriggerPipeline.run`` with every
    input already on the card, kernel path and plain path, one warm-up run
    each, then one run under ``torch.profiler``: the wall time, the device's
    busy time (the union of the intervals of its kernels and copies) and so
-   its idle share, and the device time of the heaviest kernels by name.
+   its idle share, the device kernels per step, the device time of the
+   heaviest kernels by name and of each of the port's own kernels, and
+   the host ops by self time.
    Falls back to CUDA events for the wall time alone when the profiler sees
    no device activity.
 2. **Breakdown of one ``diag`` call.**  Each part timed alone, best of 3,
@@ -24,6 +29,7 @@ Imports nothing of JAX.  Without a CUDA device it exits non-zero.
 """
 from __future__ import annotations
 
+import re
 import sys
 import time
 from pathlib import Path
@@ -62,7 +68,7 @@ def busy_ms(intervals):
     return total
 
 
-def profile_resident(world, top=15):
+def profile_resident(world, top=15, sharded=False):
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -75,9 +81,22 @@ def profile_resident(world, top=15):
         torch.as_tensor(a, device=dev) for a in (
             arrays[4], arrays[5], arrays[6], arrays[0], arrays[1],
             arrays[2], arrays[3], arrays[7]))
+    if sharded:
+        from chip_smoke import SHARD_MESH, SHARD_STEPS
+        from seabreeze_param_tpu_torch.parallel.mesh import make_mesh
+        from seabreeze_param_tpu_torch.parallel.sharded import (
+            ShardedPipeline)
+        theta, u, v, ci = (a[:SHARD_STEPS] for a in (theta, u, v, ci))
+        mesh = make_mesh(SHARD_MESH, dev)
+        pipe = TriggerPipeline(grid, device=dev)
+        runners = {f"sharded {SHARD_MESH} {label}": ShardedPipeline(
+            pipe, mesh, overlap=label == "overlapped")
+            for label in ("overlapped", "basic")}
+    else:
+        runners = {label: TriggerPipeline(grid, device=dev, use_kernels=uk)
+                   for label, uk in (("kernel", None), ("plain", False))}
     T = theta.shape[0]
-    for label, uk in (("kernel", None), ("plain", False)):
-        pipe = TriggerPipeline(grid, device=dev, use_kernels=uk)
+    for label, pipe in runners.items():
 
         def run():
             pipe.run(TriggerState.zeros(grid.shape, dev), theta, u, v, lsm,
@@ -101,14 +120,25 @@ def profile_resident(world, top=15):
                         for e in dev_events]) / 1e3
         log(f"## {label}: wall {wall:.3f} ms for {T} steps "
             f"({wall / T:.4f} ms/step, profiler on); device busy "
-            f"{busy:.3f} ms, idle share {1 - busy / wall:.3f}")
+            f"{busy:.3f} ms, idle share {1 - busy / wall:.3f}; "
+            f"{len(dev_events) / T:.1f} device kernels and copies per step")
         by_name = {}
         for e in dev_events:
             n, ms = by_name.get(e.name, (0, 0.0))
             by_name[e.name] = (n + 1, ms + e.time_range.elapsed_us() / 1e3)
-        for name, (n, ms) in sorted(by_name.items(),
-                                    key=lambda kv: -kv[1][1])[:top]:
+        ranked = sorted(by_name.items(), key=lambda kv: -kv[1][1])
+        for name, (n, ms) in ranked[:top]:
             log(f"  {ms:10.3f} ms {n:6d}x  {name[:90]}")
+        own = [(re.search(r"namespace\)::(\w+(?:<\d+>)?)", name), n, ms)
+               for name, (n, ms) in ranked if "at::native" not in name]
+        log("  the port's own kernels: " + "; ".join(
+            f"{m.group(1)} {ms:.3f} ms {n}x ({ms / n * 1e3:.1f} us each)"
+            for m, n, ms in own if m))
+        host = sorted(prof.key_averages(),
+                      key=lambda e: -e.self_cpu_time_total)
+        log("  host, by self time: " + "; ".join(
+            f"{e.key} {e.self_cpu_time_total / 1e3:.1f} ms {e.count}x"
+            for e in host[:top]))
 
 
 def breakdown(world):
@@ -176,6 +206,9 @@ def main():
                        text=True, check=True).stdout.strip().splitlines()[0])
     log(f"# torch {torch.__version__}, CUDA {torch.version.cuda}")
     world = main_world()
+    if "--sharded" in sys.argv[1:]:
+        profile_resident(world, sharded=True)
+        return 0
     profile_resident(world)
     breakdown(world)
     return 0
