@@ -16,9 +16,14 @@ alone against its plain version at the shard shapes of 0.25 and 0.1 deg,
 ``ShardedPipeline.run`` for 16 steps of the main world, overlapped (B6 +
 B2 + B1) against the single-device run and its own plain path, basic (B6 +
 B2 + B4) against overlapped, ``diag(mesh='2x4')`` against ``diag()``, and
-the dummy model's ``--sharded``.  Each path's launch counts are zeroed
-just before it runs and read just after.  Any failed check raises, so the
-exit code is non-zero.
+the dummy model's ``--sharded``.  Last the batch driver (``cli/run.py``)
+over a daily netCDF series of the main world written into a temporary
+directory (3 files of 4 steps): kernel path against plain, bit-equal to
+the same ``diag`` calls on the in-memory arrays, ``--mesh=2x4`` against
+the single device, a resume from a checkpoint bit-equal to the unbroken
+run, the native reader in use, and the composites.  Each path's launch
+counts are zeroed just before it runs and read just after.  Any failed
+check raises, so the exit code is non-zero.
 
 Output: a line with the card's name and power limit (``nvidia-smi``), one
 line per phase, a JSON line ``{"kernels": [...]}`` with each kernel's
@@ -30,6 +35,7 @@ from __future__ import annotations
 
 import functools
 import json
+import os
 import subprocess
 import sys
 import time
@@ -46,6 +52,9 @@ COUPLED_STEPS = tuple(range(0, 32, 4))
 SHARD_MESH, SHARD_STEPS = "2x4", 16
 #: The halo exchange's (lat_fill, exact_lon) combinations on the path.
 HALO_FILLS = (("clamp", True), ("clamp", False), ("zero", False))
+#: The driver phase's series: the main world's first 12 steps as 3 daily
+#: files of 4 six-hourly steps (its ice edge moves at step 8, in file 3).
+DRIVER_DAYS, DRIVER_STEPS = 3, 4
 
 
 def log(msg):
@@ -923,6 +932,282 @@ def phase_dummy_sharded(out):
     out.update(launches=launches, ms_per_step=kms)
 
 
+DRIVER_CONF = """datadir = {root}/data
+landfracfile = {root}/data/static_slm.nc
+topofile = {root}/data/static_topo.nc
+orofile = {root}/data/static_topo.nc
+prefix = Synth_
+vtheta = t2m
+vu = u
+vv = v
+vlon = longitude
+vlat = latitude
+vpres = level
+vci = ci
+vlandfrac = lsm
+vz = z
+vstd = sdfor
+vtime = time
+plev = 700
+start = 1987-01-01_00:00
+end = 1987-01-{end:02d}_00:00
+"""
+
+
+def write_series(root):
+    """The main world's first ``DRIVER_DAYS * DRIVER_STEPS`` steps as a
+    daily netCDF series under ``root``, in the layout of
+    ``tests/test_io.py`` and with the port's writer: static files for lsm
+    and for z and std, per day one file each of t2m, u, v and ci.  Returns
+    the run.conf of the whole series and that of its first two days."""
+    from datetime import datetime
+    from seabreeze_param_tpu_torch.io import Dataset, date2num
+
+    grid, (lsm, z, std, pres, theta, u, v, ci) = main_world()
+    data = os.path.join(root, "data")
+    os.makedirs(os.path.join(data, "1987"))
+
+    def coords(f):
+        for name, vals in (("longitude", grid.lon), ("latitude", grid.lat)):
+            f.createDimension(name, len(vals))
+            f.createVariable(name, "f", (name,))[:] = vals
+
+    for fname, fields in (("static_slm.nc", {"lsm": lsm}),
+                          ("static_topo.nc", {"z": z, "sdfor": std})):
+        with Dataset(os.path.join(data, fname), "w") as f:
+            coords(f)
+            for name, a in fields.items():
+                f.createVariable(name, "f", ("latitude", "longitude"))[:] = a
+    units = "hours since 1987-01-01 00:00:00"
+    for d in range(DRIVER_DAYS):
+        sel = slice(d * DRIVER_STEPS, (d + 1) * DRIVER_STEPS)
+        times = [datetime(1987, 1, d + 1, 6 * i) for i in range(DRIVER_STEPS)]
+        for name, a in (("t2m", theta), ("u", u), ("v", v), ("ci", ci)):
+            path = os.path.join(data, "1987",
+                                f"Synth_{name}_1987_01_{d + 1:02d}.nc")
+            with Dataset(path, "w") as f:
+                f.createDimension("time", None)
+                f.createDimension("level", len(pres))
+                coords(f)
+                f.createVariable("time", "d", ("time",))[:] = date2num(
+                    times, units)
+                f.variables["time"].setncattr("units", units)
+                f.createVariable("level", "f", ("level",))[:] = pres
+                dims = ("time",) + (("level",) if a.ndim == 4 else ()) + (
+                    "latitude", "longitude")
+                f.createVariable(name, "f", dims)[:] = a[sel]
+    confs = []
+    for end in (DRIVER_DAYS + 1, 3):
+        confs.append(os.path.join(root, f"run_{end}.conf"))
+        with open(confs[-1], "w") as f:
+            f.write(DRIVER_CONF.format(root=root, end=end))
+    return confs
+
+
+def driver_run(conf, spent=None, keep=False, **kw):
+    """The port's batch driver on the card: ``(state, files)``, the final
+    ``(tt, thc, ws, wd)`` and per written file its sb_con and thc, read
+    back and the file removed unless ``keep``.  With ``spent`` (a dict),
+    the wall seconds of the run and of its reading, its ``diag`` calls
+    (reads inside them excluded) and its writing are added to it."""
+    import torch
+    from seabreeze_param_tpu_torch import api
+    from seabreeze_param_tpu_torch.cli import run
+    from seabreeze_param_tpu_torch.io import Dataset, meta, netcdf
+
+    patches = []
+    if spent is not None:
+        inside = []
+
+        def wrap(owner, name, key):
+            fn = getattr(owner, name)
+
+            def timed(*a, **k):
+                inside.append(key)
+                t0 = time.perf_counter()
+                try:
+                    return fn(*a, **k)
+                finally:
+                    dt = time.perf_counter() - t0
+                    inside.pop()
+                    spent[key] = spent.get(key, 0.0) + dt
+                    if key == "read" and "diag" in inside:
+                        spent["read_in_diag"] = spent.get(
+                            "read_in_diag", 0.0) + dt
+            patches.append((owner, name, fn))
+            setattr(owner, name, timed)
+
+        wrap(run, "read_nc", "read")
+        wrap(netcdf.Variable, "__getitem__", "read")
+        wrap(api, "diag", "diag")
+        wrap(meta.Meta, "create_nc", "write")
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        *state, written = run.main(conf, progress=None, device="cuda", **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        for owner, name, fn in patches:
+            setattr(owner, name, fn)
+    if spent is not None:
+        spent["wall"] = spent.get("wall", 0.0) + wall
+    files = []
+    for path in written:
+        with Dataset(path) as f:
+            files.append({k: np.ma.getdata(f.variables[k][:])
+                          for k in ("sb_con", "thc")})
+        if not keep:
+            os.remove(path)
+    return tuple(state), files
+
+
+def same_run(a, b, what):
+    """Two driver runs bit-equal: final state and written files."""
+    (sa, fa), (sb, fb) = a, b
+    if sa[0] != sb[0] or len(fa) != len(fb):
+        raise AssertionError(f"{what}: tt or file count differs")
+    for x, y, name in zip(sa[1:], sb[1:], ("thc", "ws", "wd")):
+        if not np.array_equal(x, y):
+            raise AssertionError(f"{what}: final {name} not bit-equal")
+    for i, (ga, gb) in enumerate(zip(fa, fb)):
+        for key in ga:
+            if not np.array_equal(ga[key], gb[key]):
+                raise AssertionError(f"{what}: file {i} {key} not bit-equal")
+
+
+def phase_driver(out):
+    """The batch driver (``cli/run.py``) at global 0.25 deg over a daily
+    netCDF series of the main world (3 files of 4 steps, the ice edge
+    moving at step 8), written with the port's writer into a temporary
+    directory and read back through the native reader: kernel path against
+    the plain path; bit-equal to the same three ``diag`` calls on the
+    in-memory arrays; ``--mesh=2x4`` against the single device; a resume
+    from a checkpoint bit-equal to the unbroken run; the composites."""
+    import shutil
+    import tempfile
+    from seabreeze_param_tpu_torch.api import diag
+    from seabreeze_param_tpu_torch.cli import composites
+    from seabreeze_param_tpu_torch.io import Dataset, native_nc
+
+    grid, (lsm, z, std, pres, theta, u, v, ci) = main_world()
+    nlat, nlon = grid.shape
+    T = DRIVER_DAYS * DRIVER_STEPS
+    root = tempfile.mkdtemp(prefix="sb_driver_")
+    try:
+        t0 = time.perf_counter()
+        conf, conf2 = write_series(root)
+        write_s = time.perf_counter() - t0
+        with Dataset(os.path.join(root, "data", "1987",
+                                  "Synth_u_1987_01_01.nc")) as f:
+            if not native_nc.available() or f._native is None:
+                raise AssertionError("driver: the native reader is not used")
+
+        unbroken = driver_run(conf)                     # and warm-up
+        zero_launches()
+        spent, mfile = {}, os.path.join(root, "metrics.jsonl")
+        kern = driver_run(conf, spent, metrics_file=mfile)
+        launches = {n: c for n, c in read_launches().items() if c}
+        want = {"ring_trigger_stacked": T,
+                "pass2_min": T + DRIVER_DAYS}           # + a probe per file
+        if launches != want:
+            raise AssertionError(f"driver launches {launches}, want {want}")
+        same_run(kern, unbroken, "driver rerun")
+        with open(mfile) as f:
+            metrics = [json.loads(line) for line in f]
+        if len(metrics) != DRIVER_DAYS:
+            raise AssertionError("driver: one metrics line per file")
+
+        plain_spent = {}
+        plain = driver_run(conf, plain_spent, use_kernels=False)
+        if {n: c for n, c in read_launches().items() if c} != launches:
+            raise AssertionError("driver: the plain path launched a kernel")
+        worst = 0.0
+        for fk, fp in zip(kern[1], plain[1]):
+            worst = max(worst, check_fields(fk, fp, "driver vs plain"))
+        check_fields(dict(zip(("thc", "windspeed", "winddir"), kern[0][1:])),
+                     dict(zip(("thc", "windspeed", "winddir"), plain[0][1:])),
+                     "driver final state", bit_state=("windspeed", "winddir"))
+        sb = np.concatenate([f["sb_con"] for f in kern[1]])
+        if sb.shape != (T, nlat, nlon) or not np.isfinite(sb).all():
+            raise AssertionError("driver: sb_con shape or finiteness")
+
+        # the same three diag calls on the in-memory arrays, state threaded
+        state = (1,) + tuple(np.zeros((nlat, nlon), np.float32)
+                             for _ in range(3))
+        direct = []
+        for d in range(DRIVER_DAYS):
+            sel = slice(d * DRIVER_STEPS, (d + 1) * DRIVER_STEPS)
+            r = diag(state[0], lsm, z, std, grid.lon, grid.lat, pres, u[sel],
+                     v[sel], theta[sel], ci[sel], thc=state[1], ws=state[2],
+                     wd=state[3], device="cuda", full_output=True)
+            state = (r[0],) + tuple(r[2:5])
+            direct.append({"sb_con": r[1], "thc": r[5]["t0"]})
+        same_run(kern, (state, direct), "driver vs direct diag calls")
+
+        zero_launches()
+        mesh_spent = {}
+        meshed = driver_run(conf, mesh_spent, mesh=SHARD_MESH)
+        mesh_launches = {n: c for n, c in read_launches().items() if c}
+        mesh_want = {"halo_exchange": DRIVER_DAYS * (3 + 2 * DRIVER_STEPS),
+                     "ring_trigger_stacked": 8 * T,
+                     "pass2_min": 8 * T + DRIVER_DAYS}
+        if mesh_launches != mesh_want:
+            raise AssertionError(f"driver mesh launches {mesh_launches}, "
+                                 f"want {mesh_want}")
+        off = max(outputs_sharded_close(fm, fk, "driver mesh vs single")
+                  for fm, fk in zip(meshed[1], kern[1]))
+        for i, (name, rtol, atol) in enumerate((("thc", 1e-6, 1e-5),
+                                                ("ws", 1e-6, 1e-5),
+                                                ("wd", 1e-5, 1e-3)), 1):
+            np.testing.assert_allclose(meshed[0][i], kern[0][i], rtol=rtol,
+                                       atol=atol, err_msg=name)
+
+        # resume: stop after day 2, rerun the whole series, rerun again;
+        # the first two runs keep their files, which are the whole series
+        ck = os.path.join(root, "ck")
+        first = driver_run(conf2, keep=True, ckpt_dir=ck)
+        if first[0][0] != 1 + 2 * DRIVER_STEPS:
+            raise AssertionError(f"driver first two days: tt {first[0][0]}")
+        same_run(first, (first[0], unbroken[1][:2]), "driver first two days")
+        resumed = driver_run(conf, keep=True, ckpt_dir=ck)
+        same_run(resumed, (unbroken[0], unbroken[1][2:]), "driver resume")
+        zero_launches()
+        again = driver_run(conf, ckpt_dir=ck)
+        if again[1] or any(read_launches().values()):
+            raise AssertionError("driver: a finished series recomputed")
+        same_run(again, (unbroken[0], []), "driver resume, finished series")
+
+        # the composites read the sb files the resumed runs left
+        ncout, maps = composites.main(conf, plot=False, progress=None)
+        with Dataset(ncout) as f:
+            comp = f.variables["sb_con"].shape
+        if comp != (4 * DRIVER_STEPS, nlat, nlon) or maps:
+            raise AssertionError(f"composites: shape {comp}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+    ms = spent["wall"] / T * 1e3
+    shares = {k: spent.get(k, 0.0) / spent["wall"] for k in ("read", "write")}
+    shares["diag"] = (spent["diag"] - spent.get("read_in_diag", 0.0)) \
+        / spent["wall"]
+    plain_ms = plain_spent["wall"] / T * 1e3
+    mesh_ms = mesh_spent["wall"] / T * 1e3
+    log(f"# driver global025 ({nlat}x{nlon}, {DRIVER_DAYS} daily files x "
+        f"{DRIVER_STEPS} steps, series written in {write_s:.1f} s): kernel "
+        f"path {ms:.3f} ms/step, plain path {plain_ms:.3f} ms/step; wall "
+        f"shares read {shares['read']:.3f}, diag {shares['diag']:.3f}, "
+        f"write {shares['write']:.3f}; launches {launches}; matches plain "
+        f"(max |diff| {worst:.3g}, final ws/wd bit-equal); bit-equal to the "
+        f"direct diag calls; --mesh={SHARD_MESH} {mesh_ms:.3f} ms/step, "
+        f"launches {mesh_launches}, matches single (largest fraction off {off:.3g}); resume bit-equal; "
+        f"native reader; composites {comp}")
+    log(f"# driver metrics line keys: {sorted(metrics[-1])}")
+    out.update(launches=launches, mesh_launches=mesh_launches,
+               ms_per_step=ms, plain_ms_per_step=plain_ms,
+               mesh_ms_per_step=mesh_ms, shares=shares)
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -940,7 +1225,7 @@ def main():
 
     b2, b1, padded, main_out = {}, {}, {}, {}
     coupling, fused, dummy = {}, {}, {}
-    b6, sharded, diag_mesh, dummy_sharded = {}, {}, {}, {}
+    b6, sharded, diag_mesh, dummy_sharded, driver = {}, {}, {}, {}, {}
     phase_build()
     for name in ("global025", "global010"):
         phase_pass2(name, b2)
@@ -955,6 +1240,7 @@ def main():
     phase_sharded(sharded)
     phase_diag_mesh(diag_mesh)
     phase_dummy_sharded(dummy_sharded)
+    phase_driver(driver)
 
     def per_kernel(name):
         return {g: padded[g][name] for g in padded}

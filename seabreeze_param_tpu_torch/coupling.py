@@ -164,6 +164,6 @@ def cumulus_mask(sb_con, *, min_strength: float = 0.0):
     """Mock downstream consumer: the boolean trigger mask a mass-flux
     cumulus scheme would read — sb_con above ``min_strength`` at valid
     cells, missing-value cells excluded."""
-    sb = torch.as_tensor(sb_con, dtype=torch.float32)
+    sb = _f32(sb_con, None)
     valid = sb.abs() < float(MISSING_VALUE) / 2
     return valid & (sb > float(np.float32(min_strength)))

@@ -16,6 +16,7 @@ from __future__ import annotations
 
 from dataclasses import dataclass, field
 
+import numpy as np
 import torch
 
 from ..core.grid import Grid
@@ -28,6 +29,11 @@ from ..ops.trigger import trigger_step, trigger_step_stacked
 
 
 def _f32(a, device):
+    """A float32 tensor on ``device`` (None: where ``a`` already is).  Host
+    arrays become native float32 first: classic netCDF read through scipy
+    is big-endian (``>f4``), which ``torch.as_tensor`` refuses."""
+    if not isinstance(a, torch.Tensor):
+        a = np.asarray(a, np.float32)
     return torch.as_tensor(a, dtype=torch.float32, device=device)
 
 

@@ -43,7 +43,7 @@ import torch
 
 from ..core.grid import Grid
 from ..core.state import TriggerState
-from ..models.pipeline import TriggerPipeline
+from ..models.pipeline import TriggerPipeline, _f32
 from ..ops.coastline import make_mask, sobel_edges_from_padded
 from ..ops.distance import coast_distance_from_padded, device_tables
 from ..ops.orography import sigmoid_weight_shards
@@ -296,13 +296,12 @@ class ShardedPipeline:
         mesh, dev = self.mesh, self.mesh.device
 
         def shards(a):
-            t = torch.as_tensor(a, dtype=torch.float32, device=dev)
-            return split(_pad_lat(t, self.nlat_pad), mesh)
+            return split(_pad_lat(_f32(a, dev), self.nlat_pad), mesh)
 
         T = int(np.shape(theta_t)[0])
         xs = (shards(theta_t), shards(u_t), shards(v_t),
               None if ci_t is None else shards(ci_t))
-        pres_t = torch.as_tensor(pres, dtype=torch.float32, device=dev)
+        pres_t = _f32(pres, dev)
         pres_s = (shards(pres_t) if pres_t.dim() == 3
                   else [pres_t] * mesh.size)
         lsm_s, z_s, std_s = (shards(a) for a in (lsm, z, std))

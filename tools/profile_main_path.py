@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the time of the port's main path goes, on one NVIDIA GPU.
 
-    python3 tools/profile_main_path.py [--sharded]
+    python3 tools/profile_main_path.py [--sharded | --driver]
 
 Uses the world of ``chip_smoke.py``'s main phase (global 0.25 deg, 4
 levels, 32 steps, moving polar sea ice) and prints two reports (with
@@ -23,7 +23,9 @@ overlapped and basic structures on the kernel path):
    ``full_output``), the host-to-device copy of the inputs from pageable
    and from pinned memory, the ring-radius probe (its distance field on the
    card, the host transform), the resident loop, and the copy back of
-   sb_con and of all four output fields.
+   sb_con and of all four output fields.  With ``--driver``, this report
+   alone, for the call the batch driver makes per file: the world's first
+   4 steps (``chip_smoke``'s driver phase).
 
 Imports nothing of JAX.  Without a CUDA device it exits non-zero.
 """
@@ -208,6 +210,12 @@ def main():
     world = main_world()
     if "--sharded" in sys.argv[1:]:
         profile_resident(world, sharded=True)
+        return 0
+    if "--driver" in sys.argv[1:]:
+        from chip_smoke import DRIVER_STEPS
+        grid, (lsm, z, std, pres, *series) = world
+        breakdown((grid, (lsm, z, std, pres,
+                          *(a[:DRIVER_STEPS] for a in series))))
         return 0
     profile_resident(world)
     breakdown(world)
