@@ -9,72 +9,115 @@
 // a candidate being BIG where Mmin is BIG (a row window with no coast cell).
 // Plain version: seabreeze_param_tpu_torch/ops/distance.py::pass2_min.
 //
-// What bounds it on an H100: device memory.  Each output cell costs 2k+1
-// multiply-add-select-min steps (31 at k = 15, 0.1 deg) against about 12
-// bytes of traffic (its Mmin column read (TH+2k)/TH times, the write): about
-// 10 operations per byte, under the card's fp32 ridge of about 20.  The plain torch version
-// reads and writes the whole field 2k+1 times over; this kernel reads Mmin
-// once per tile.
+// What bounds it on an H100: device memory, by the bytes it must move (Mmin
+// in, amin out: 8.45 MB at 0.25 deg, 52.75 MB at 0.1 deg).  Its arithmetic
+// is small on real data: ~95% of the output is BIG (no coast within k rows
+// and columns), and a tile whose strip holds no coast source skips it.
+// What held the first design back at 0.25 deg was the latency of its strip
+// loads: each thread loaded its eleven strip values one after another,
+// each waiting for device memory before the next was asked for.  A
+// register sliding window over 64-row tiles (tools/designs/
+// pass2_min_window.cu) is slower still on this data (PERF.md): with the
+// taps few, what counts is the bytes in flight, and a thread streaming
+// its rows keeps fewer in flight than a block that issues every copy of
+// its strip at once.
 //
-// Design: one block per (TH x TW) = (32 x 128) tile, 128 x 4 threads, each
-// thread owning one column and TH/4 rows.  The block stages its (TH+2k) x TW
-// Mmin strip in shared memory with loads coalesced along x, and its
-// sdphi2/po rows beside it, then runs the tap loop from shared memory.  A
-// block whose strip holds no source (every Mmin >= BIG/2) writes BIG and
-// skips the loop, as _pass2_kernel does.  The multiply and the add are
-// rounded separately (__fmul_rn, __fadd_rn): nvcc would otherwise contract
-// them into an FMA, and the result is then bit-equal to the plain version,
-// which runs them as two torch ops.
+// Design: one block per (TH x TW) = (16 x 128) tile, 128 x 4 threads.
+// * Every strip load is in flight at once: each thread issues all of its
+//   cp.async copies of the (TH+2k) x TW Mmin strip (16 bytes each where the
+//   rows allow, else 4), then waits once.  Beyond the field the strip holds
+//   BIG.  The tile's (sdphi2, po) rows are staged beside it as float2, so a
+//   tap costs two shared loads, one of them a warp broadcast.
+// * A block whose strip holds no source (every Mmin >= BIG/2) writes BIG
+//   and skips the tap loop (__syncthreads_or), as _pass2_kernel does.
+// * The multiply and the add are rounded separately (__fmul_rn, __fadd_rn):
+//   nvcc would otherwise contract them into an FMA, and the result is then
+//   bit-equal to the plain version, which runs them as two torch ops.
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
 constexpr int TW = 128;  // tile columns = threads along x
 constexpr int TY = 4;    // threads along y
-constexpr int TH = 32;   // tile rows; each thread owns TH / TY of them
+constexpr int NT = TW * TY;
+constexpr int TH = 16;   // tile rows; each thread owns TH / TY of them
 constexpr float BIG = 1.0e30f;
 
-__global__ void __launch_bounds__(TW * TY)
+__device__ __forceinline__ void cp_async(void* dst, const void* src,
+                                         int bytes) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  if (bytes == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+                 "l"(src));
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
+                 "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::);
+}
+
+// VEC: w % 4 == 0 and 16-byte aligned rows, so the strip is copied in
+// 16-byte pieces.
+template <bool VEC>
+__global__ void __launch_bounds__(NT)
 pass2_min_kernel(const float* __restrict__ mmin,
                  const float* __restrict__ sdphi2,
                  const float* __restrict__ po, float* __restrict__ out,
                  int h, int w, int k) {
-  extern __shared__ float smem[];
+  extern __shared__ float4 smem4[];
   const int nwin = 2 * k + 1;
   const int rows = TH + 2 * k;
-  float* s_m = smem;               // rows x TW   Mmin strip
-  float* s_s = s_m + rows * TW;    // TH x nwin   sdphi2 rows
-  float* s_p = s_s + TH * nwin;    // TH x nwin   po rows
+  float* s_m = reinterpret_cast<float*>(smem4);           // rows x TW strip
+  float2* s_t = reinterpret_cast<float2*>(s_m + rows * TW);  // TH x nwin
 
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const int x = blockIdx.x * TW + tx;
-  const int y0 = blockIdx.y * TH;
+  const int tid = threadIdx.y * TW + threadIdx.x;
+  const int x0 = blockIdx.x * TW, y0 = blockIdx.y * TH;
+  const int mrows = h + 2 * k;
+
+  // the strip: every copy issued, then one wait
+  constexpr int PIECE = VEC ? 4 : 1;          // floats per copy
+  constexpr int PER_ROW = TW / PIECE;
+  for (int i = tid; i < rows * PER_ROW; i += NT) {
+    const int r = i / PER_ROW, c = (i - r * PER_ROW) * PIECE;
+    const int gy = y0 + r, gx = x0 + c;
+    float* dst = s_m + r * TW + c;
+    if (gy < mrows && gx + PIECE <= w) {
+      cp_async(dst, mmin + (size_t)gy * w + gx, PIECE * 4);
+    } else {
+#pragma unroll
+      for (int u = 0; u < PIECE; ++u)
+        dst[u] = gy < mrows && gx + u < w ? mmin[(size_t)gy * w + gx + u]
+                                          : BIG;
+    }
+  }
+  for (int i = tid; i < TH * nwin; i += NT) {
+    const size_t g = (size_t)y0 * nwin + i;
+    s_t[i] = y0 + i / nwin < h ? make_float2(sdphi2[g], po[g])
+                               : make_float2(BIG, 0.0f);
+  }
+  cp_async_wait_all();
+  __syncthreads();
 
   bool any_src = false;
-  for (int r = ty; r < rows; r += TY) {
-    const int gy = y0 + r;
-    float v = BIG;  // beyond the field: an empty window
-    if (gy < h + 2 * k && x < w) v = mmin[(size_t)gy * w + x];
-    s_m[r * TW + tx] = v;
-    any_src |= v < 0.5f * BIG;
-  }
-  for (int i = ty * TW + tx; i < TH * nwin; i += TW * TY) {
-    const bool ok = y0 + i / nwin < h;
-    s_s[i] = ok ? sdphi2[(size_t)y0 * nwin + i] : BIG;
-    s_p[i] = ok ? po[(size_t)y0 * nwin + i] : 0.0f;
-  }
+  for (int i = tid; i < rows * TW; i += NT) any_src |= s_m[i] < 0.5f * BIG;
   const bool compute = __syncthreads_or(any_src);
 
-  for (int r = ty; r < TH; r += TY) {
+  const int tx = threadIdx.x, x = x0 + tx;
+  for (int r = threadIdx.y; r < TH; r += TY) {
     const int gy = y0 + r;
     if (gy >= h || x >= w) continue;
     float amin = BIG;
     if (compute) {
-      const float* ss = s_s + r * nwin;
-      const float* pp = s_p + r * nwin;
+      const float2* t = s_t + r * nwin;
+      const float* m = s_m + r * TW + tx;
+#pragma unroll 4
       for (int di = 0; di < nwin; ++di) {
-        const float lo = s_m[(r + di) * TW + tx];
-        float cand = __fadd_rn(ss[di], __fmul_rn(pp[di], lo));
+        const float lo = m[di * TW];
+        const float2 tap = t[di];
+        float cand = __fadd_rn(tap.x, __fmul_rn(tap.y, lo));
         cand = lo > 0.5f * BIG ? BIG : cand;
         amin = fminf(amin, cand);
       }
@@ -83,16 +126,14 @@ pass2_min_kernel(const float* __restrict__ mmin,
   }
 }
 
-}  // namespace
-
-extern "C" int sbz_pass2_min(const float* mmin, const float* sdphi2,
-                             const float* po, float* out, int h, int w, int k,
-                             void* stream) {
-  const size_t smem =
-      sizeof(float) * ((size_t)(TH + 2 * k) * TW + 2 * (size_t)TH * (2 * k + 1));
+template <bool VEC>
+int launch(const float* mmin, const float* sdphi2, const float* po,
+           float* out, int h, int w, int k, cudaStream_t stream) {
+  const size_t smem = sizeof(float) * (size_t)(TH + 2 * k) * TW +
+                      sizeof(float2) * (size_t)TH * (2 * k + 1);
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
-        pass2_min_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        pass2_min_kernel<VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     // More than a block may hold (k too large): report it, and clear the
     // error so the next launch does not read it back as its own.
@@ -103,7 +144,18 @@ extern "C" int sbz_pass2_min(const float* mmin, const float* sdphi2,
   }
   const dim3 grid((w + TW - 1) / TW, (h + TH - 1) / TH);
   const dim3 block(TW, TY);
-  pass2_min_kernel<<<grid, block, smem, (cudaStream_t)stream>>>(
-      mmin, sdphi2, po, out, h, w, k);
+  pass2_min_kernel<VEC><<<grid, block, smem, stream>>>(mmin, sdphi2, po,
+                                                       out, h, w, k);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" int sbz_pass2_min(const float* mmin, const float* sdphi2,
+                             const float* po, float* out, int h, int w, int k,
+                             void* stream) {
+  const cudaStream_t s = (cudaStream_t)stream;
+  const bool vec = w % 4 == 0 && (uintptr_t)mmin % 16 == 0;
+  return vec ? launch<true>(mmin, sdphi2, po, out, h, w, k, s)
+             : launch<false>(mmin, sdphi2, po, out, h, w, k, s);
 }

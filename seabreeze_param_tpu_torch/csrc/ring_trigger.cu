@@ -23,49 +23,92 @@
 // Then the trigger tail: first-step seeding, four thresholds, scaling,
 // MISSING off the band, the 6-hourly wind cadence and the nlats-1 row.
 //
-// What bounds it on an H100: shared-memory traffic and barriers.  The ring
-// loop does about 30 shared-memory reads and writes per cell and radius and
-// a block-wide barrier three times per radius; device memory sees only the
-// two padded strips in and a few fields in or out per cell.
+// What bounds it on an H100.  The least time is set by device memory: 48
+// bytes per cell of the coastal tiles (seven fields in, five out); the
+// ring loop's additions are far below the float32 rate.  What it takes is
+// each coastal tile's chain of dependent steps at two resident blocks per
+// SM: its strip from device memory, the running sums through shared
+// memory with a barrier per radius (~5.6 sum updates per cell and radius
+// at NN = 19, the 16 x 32 tile's halo), the lookups and the tail; fewer
+// bytes per update and fewer barriers shortened it, fewer updates alone
+// did not.  And a block for every tile of the field would be 85-95%
+// blocks that return at once (~20 us of a 0.1-degree step on an H100).
+// Two answers to the chain were measured slower (tools/designs/
+// ring_trigger_variants.cu, PERF.md): staging the next tile's strip with
+// cp.async during this tile's ring loop (the second resident block on
+// the SM already hides one block's loads behind the other's loop), and
+// 32 x 32 tiles of two cells per thread (96 registers: one block per SM).
 //
-// Design:
-// * One block per TH x TW = 16 x 32 tile, one thread per cell.  The TPU
-//   tile (64, 128) with its scratch would not fit in a block's 227 KB.
-// * The (t0, cd) strips of (TH+2NN) x (TW+2NN), the horizontal running sums
-//   hp[3][TH+2NN][TW] and the vertical ones vc[3][TH][TW+2NN] live in
-//   dynamic shared memory sized from NN (65 KB at NN = 19); the window sums
-//   and the five latches live in registers.
+// Design (TH x TW = 16 x 32 tiles, one thread per cell, NT = 512 threads):
+// * B1 runs on persistent blocks.  Its grid is what the card holds at once
+//   (blocks per SM from the occupancy calculator, times the SMs).  Every
+//   block ranks the tiles set in the ever-coastal mask by one pass over
+//   it (each thread reads up to 64 mask bytes at once, a block scan gives
+//   the ranks) and runs those of rank b, b + G, b + 2G, ...  A tile outside
+//   the set costs one byte, not a block; no host sync, no compaction
+//   kernel, no atomics.  Dealing by rank, not by tile index, spreads the
+//   clustered coastal tiles evenly (by tile index one block drew 4 of 324
+//   tiles at 0.25 deg, 10 of 1204 at 0.1 deg).  B4 and B5, which write
+//   every tile, keep one block per tile: the card's own scheduler overlaps
+//   their many pass-through tiles better than a block walking them in turn.
+// * Two channels only.  t0*land and t0*sea are computed once per strip
+//   cell, when the strip lands, with the operations of ring_quantities
+//   (land select, t0*land, t0 - t0*land), and kept as one float2.  The
+//   land channel's window sums are whole numbers, exact in float, so they
+//   come from an integral image of the strip's land mask instead: each
+//   coastal cell finds its latch radius (the first window holding both
+//   classes) and its land count there before the ring loop, and the tile
+//   runs exactly the radii of its slowest coastal cell.
+// * The running sums live in registers.  Each thread owns fixed elements
+//   of the horizontal sums hp (rows of the strip x TW) and of the vertical
+//   sums vc (TH x strip columns), updates them in registers and stores
+//   each once per radius, for the window lookups, into one of two buffers:
+//   a radius costs one barrier.  A cell past its latch radius stops
+//   looking up.
+// * Strip loads are batched four deep per thread from device memory.
 // * Sums are taken in exactly the order of ring_search.py: hp += q[x-nn] +
-//   q[x+nn]; W = W + top + bot + left + right; vc += q[y-nn] + q[y+nn].  Only
-//   additions, so no FMA contraction can change them; the two divisions run
-//   once, on the latched operands, as IEEE divisions (no fast math).
-// * The tile exits the ring loop once every coastal cell has latched
-//   (__syncthreads_and), as the TPU kernel's `done` flag does.
+//   q[x+nn]; W = W + top + bot + left + right (top/bot hp of order nn,
+//   left/right vc of order nn-1); vc += q[y-nn] + q[y+nn].  Only
+//   additions, so no FMA contraction can change them; the two divisions
+//   run once, on the latched operands, as IEEE divisions (no fast math).
+// * The integral image is dead before the running sums are first stored,
+//   so the two share their shared memory; where two buffers of sums do not
+//   fit a block (NN > 52), one does, at a second barrier per radius.
+//   NN <= 57 fits an H100's 227 KB a block; larger radii are refused.
 // * A tile with no coastal cell skips the strip load and the ring loop:
-//   MISSING sb (n_thc 0 for B5) and the wind passed through.  B1 launches
-//   over the full tile grid too, and a block whose tile is not in the
-//   ever-coastal set (`ever`, kept on the device by the caller) returns at
-//   once: its slots keep the caller's pre-filled defaults, which equal what
-//   it would compute.  B4 has no such set and no pre-fill, so every tile
-//   writes all of its outputs, the skipped ones included.
+//   MISSING sb (n_thc 0 for B5) and the wind passed through.  B1's tiles
+//   outside the ever-coastal set are never visited: their slots keep the
+//   caller's pre-filled defaults, which equal what they would compute.  B4
+//   has no such set and no pre-fill, so every tile writes all of its
+//   outputs, the skipped ones included.
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int TH = 16;  // tile rows = threads along y
-constexpr int TW = 32;  // tile columns = threads along x (one warp per row)
+constexpr int TH = 16;  // tile rows
+constexpr int TW = 32;  // tile columns (one warp per tile row)
 constexpr int NT = TH * TW;
+constexpr int NWARP = NT / 32;
 constexpr float MISSING = 2.0e20f;
 constexpr float SENTINEL = 12000.0f;
 
 enum Mode { STACKED = 0, PADDED = 1, THC = 2 };
 
-// The three ring channels of one padded cell: t0*land, land, t0*sea.
-__device__ __forceinline__ void quants(float t0, float cd, float& tl,
-                                       float& land, float& ts) {
-  land = cd >= 0.0f ? 1.0f : 0.0f;
-  tl = __fmul_rn(t0, land);
-  ts = __fsub_rn(t0, tl);
+// The most tiles one thread of B1 ranks per round of its persistent loop.
+constexpr int RUN = 64;
+
+// Dynamic shared memory of one block at ring radius nn: the strip of
+// (TH+2nn) x (TW+2nn) padded cells, then nbuf buffers each of the hp rows
+// (TH+2nn) x TW and the vc columns TH x (TW+2nn), one float2 (tl, ts) per
+// element.  The strip's integral image of land, (TH+2nn+1) x (TW+2nn+1)
+// ints, is dead before the running sums are first stored, so it shares
+// their space.
+size_t smem_bytes(int nn, int nbuf) {
+  const size_t sh = TH + 2 * nn, sw = TW + 2 * nn;
+  const size_t sums = sizeof(float2) * nbuf * (sh * TW + TH * sw);
+  const size_t image = sizeof(int) * (sh + 1) * (sw + 1);
+  return sizeof(float2) * sh * sw + (sums > image ? sums : image);
 }
 
 // Floor modulo by 360 (jnp.mod / torch.remainder), not C's fmod.
@@ -77,6 +120,7 @@ __device__ __forceinline__ float floor_mod360(float x) {
 
 struct Scalars {
   int h, w, nn, is_first, upd, row_offset, row_limit;
+  int nbuf;  // buffers of the running sums: 2 where they fit, else 1
   float maxdist, thresh_wind, thresh_winddir, thresh_windch, thresh_thc;
 };
 
@@ -95,101 +139,180 @@ struct Fields {
   float* wd_out;
 };
 
-// Ring search of one tile, run by every thread of the block (it holds
-// block-wide barriers).  Loads the strips of the tile at (r0, c0) and
-// returns the cell's n_thc (0 off the band and outside the field).
+__device__ __forceinline__ void add2(float2& v, const float2& a,
+                                     const float2& b) {
+  v.x = (v.x + a.x) + b.x;
+  v.y = (v.y + a.y) + b.y;
+}
+
+// Inclusive prefix sums along `n` ints at p[0], p[stride], ... by one warp.
+__device__ __forceinline__ void warp_prefix(int* p, int n, int stride,
+                                            int lane) {
+  int carry = 0;
+  for (int i0 = 0; i0 < n; i0 += 32) {
+    const int i = i0 + lane;
+    int v = i < n ? p[i * stride] : 0;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int u = __shfl_up_sync(0xffffffffu, v, o);
+      if (lane >= o) v += u;
+    }
+    v += carry;
+    if (i < n) p[i * stride] = v;
+    carry = __shfl_sync(0xffffffffu, v, 31);
+  }
+}
+
+// Ring search of the tile at (r0, c0), run by every thread of the block
+// (it holds block-wide barriers).  HS and VS are the hp and vc elements a
+// thread owns at most.  Returns the cell's n_thc (0 off the band and
+// outside the field).
+template <int HS, int VS>
 __device__ float ring_thc_tile(const Fields& f, const Scalars& s, int r0,
                                int c0, bool coastal, float cdc) {
+  __shared__ int s_rmax[NWARP];
   const int NN = s.nn;
   const int SH = TH + 2 * NN, SW = TW + 2 * NN;  // strip extents
+  const int IW = SW + 1;                         // integral image row
   const int ph = s.h + 2 * NN, pw = s.w + 2 * NN;  // padded field extents
-  const int tx = threadIdx.x, ty = threadIdx.y, tid = ty * TW + tx;
+  const int tid = threadIdx.x, tx = tid % TW, ty = tid / TW;
+  const int lane = tid % 32, warp = tid / 32;
 
-  extern __shared__ float smem[];
-  float* s_t0 = smem;                // SH x SW
-  float* s_cd = s_t0 + SH * SW;      // SH x SW
-  float* s_hp = s_cd + SH * SW;      // 3 x SH x TW
-  float* s_vc = s_hp + 3 * SH * TW;  // 3 x TH x SW
-  const int HP = SH * TW, VC = TH * SW;
+  extern __shared__ float2 smem2[];
+  float2* s_p = smem2;                 // SH x SW          (tl, ts)
+  float2* s_h = s_p + SH * SW;         // nbuf x SH x TW   hp, order nn
+  float2* s_v = s_h + s.nbuf * SH * TW;  // nbuf x TH x SW vc, order nn-1
+  int* s_i = reinterpret_cast<int*>(s_h);  // (SH+1) x IW, before the sums
 
-  for (int i = tid; i < SH * SW; i += NT) {
-    const int r = i / SW, cc = i - r * SW;
-    const int gr = r0 + r, gc = c0 + cc;
-    const bool ok = gr < ph && gc < pw;  // the ragged edge: fill
-    s_t0[i] = ok ? f.t0_pad[(size_t)gr * pw + gc] : 0.0f;
-    s_cd[i] = ok ? f.cd_pad[(size_t)gr * pw + gc] : SENTINEL;
+  // the strip, four loads in flight per thread; the ragged edge takes t0 0
+  // and the land sentinel, as the plain version's padding never reaches.
+  // Land goes to the integral image, row and column 0 of which are zero.
+  const int n = SH * SW;
+  for (int i = tid; i < n; i += 4 * NT) {
+    float t0v[4], cdv[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int e = i + u * NT;
+      const int r = e / SW, cc = e - r * SW;
+      const int gr = r0 + r, gc = c0 + cc;
+      const bool ok = e < n && gr < ph && gc < pw;
+      t0v[u] = ok ? f.t0_pad[(size_t)gr * pw + gc] : 0.0f;
+      cdv[u] = ok ? f.cd_pad[(size_t)gr * pw + gc] : SENTINEL;
+    }
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int e = i + u * NT;
+      if (e < n) {
+        const int r = e / SW, cc = e - r * SW;
+        const float land = cdv[u] >= 0.0f ? 1.0f : 0.0f;
+        const float tl = __fmul_rn(t0v[u], land);
+        s_p[e] = make_float2(tl, __fsub_rn(t0v[u], tl));
+        s_i[(r + 1) * IW + cc + 1] = cdv[u] >= 0.0f;
+      }
+    }
   }
+  for (int i = tid; i < IW + SH; i += NT)
+    s_i[i < IW ? i : (i - IW + 1) * IW] = 0;
+  __syncthreads();
+  for (int r = 1 + warp; r <= SH; r += NWARP)
+    warp_prefix(s_i + r * IW + 1, SW, 1, lane);
+  __syncthreads();
+  for (int c = 1 + warp; c <= SW; c += NWARP)
+    warp_prefix(s_i + IW + c, SH, IW, lane);
   __syncthreads();
 
-  // Order-0 running sums: hp over all strip rows, vc over all strip columns.
-  for (int i = tid; i < HP; i += NT) {
-    const int r = i / TW, xx = i - r * TW;
-    const int si = r * SW + xx + NN;
-    quants(s_t0[si], s_cd[si], s_hp[i], s_hp[HP + i], s_hp[2 * HP + i]);
+  // Each coastal cell's latch radius: the first nn whose window holds both
+  // classes (else NN), from box counts of land.  The counts are the sums
+  // of the land channel (whole numbers, exact in float), so they need no
+  // running sums; n_land at the latch is kept.
+  int rc = 0, n_land = 0;
+  if (coastal) {
+    rc = NN;
+    for (int nn = 1; nn <= NN; ++nn) {
+      const int a = (ty + NN - nn) * IW, b = (ty + NN + nn + 1) * IW;
+      const int l = tx + NN - nn, r = tx + NN + nn + 1;
+      n_land = s_i[b + r] - s_i[a + r] - s_i[b + l] + s_i[a + l];
+      if (n_land > 0 && n_land < (2 * nn + 1) * (2 * nn + 1)) {
+        rc = nn;
+        break;
+      }
+    }
   }
-  for (int i = tid; i < VC; i += NT) {
-    const int yy = i / SW, cc = i - yy * SW;
-    const int si = (yy + NN) * SW + cc;
-    quants(s_t0[si], s_cd[si], s_vc[i], s_vc[VC + i], s_vc[2 * VC + i]);
-  }
-  float W0, W1, W2;
-  {
-    const int si = (ty + NN) * SW + tx + NN;
-    quants(s_t0[si], s_cd[si], W0, W1, W2);
-  }
-  float lat_tl = 0.0f, lat_nl = 1.0f, lat_ts = 0.0f, lat_ns = 1.0f;
-  bool found = false;
-  __syncthreads();
+  const int wmax = __reduce_max_sync(0xffffffffu, rc);
+  if (lane == 0) s_rmax[warp] = wmax;
+  __syncthreads();  // the integral image is read; the sums take its space
 
-  for (int nn = 1; nn <= NN; ++nn) {
-    // widen the horizontal running sum to order nn
-    for (int i = tid; i < HP; i += NT) {
-      const int r = i / TW, xx = i - r * TW;
-      const int sl = r * SW + xx + NN - nn, sr = r * SW + xx + NN + nn;
-      float a0, a1, a2, b0, b1, b2;
-      quants(s_t0[sl], s_cd[sl], a0, a1, a2);
-      quants(s_t0[sr], s_cd[sr], b0, b1, b2);
-      s_hp[i] = (s_hp[i] + a0) + b0;
-      s_hp[HP + i] = (s_hp[HP + i] + a1) + b1;
-      s_hp[2 * HP + i] = (s_hp[2 * HP + i] + a2) + b2;
+  // order-0 running sums, each element owned by one thread; base: the
+  // strip index of the element's centre (-1: no element)
+  float2 hp[HS], vc[VS];
+  int hb[HS], vb[VS];
+#pragma unroll
+  for (int k = 0; k < HS; ++k) {
+    const int e = tid + k * NT;
+    hb[k] = e < SH * TW ? (e / TW) * SW + e % TW + NN : -1;
+    hp[k] = s_p[hb[k] < 0 ? 0 : hb[k]];
+  }
+#pragma unroll
+  for (int k = 0; k < VS; ++k) {
+    const int e = tid + k * NT;
+    vb[k] = -1;
+    if (e < TH * SW) {
+      const int yy = e / SW;
+      vb[k] = (yy + NN) * SW + e - yy * SW;
+    }
+    vc[k] = s_p[vb[k] < 0 ? 0 : vb[k]];
+    if (vb[k] >= 0) s_v[(s.nbuf - 1) * TH * SW + e] = vc[k];  // read at nn 1
+  }
+  float2 W = s_p[(ty + NN) * SW + tx + NN];
+  float lat_tl = 0.0f, lat_ts = 0.0f;
+  __syncthreads();
+  int R = 0;  // the tile's radii: its slowest coastal cell's latch radius
+  for (int k = 0; k < NWARP; ++k) R = max(R, s_rmax[k]);
+
+  // One barrier per radius where hp and vc are double-buffered, so that a
+  // radius's stores never meet the previous radius's window reads; two
+  // where one buffer is all that fits (NN > 52).
+  for (int nn = 1; nn <= R; ++nn) {
+    const int buf = s.nbuf == 2 ? (nn & 1) : 0;
+    float2* hbuf = s_h + buf * SH * TW;
+    float2* vbuf = s_v + buf * TH * SW;
+    if (s.nbuf == 1 && nn > 1) __syncthreads();
+    // vc to order nn-1 (order 0 is stored above), hp to order nn
+    if (nn > 1) {
+      const int m = (nn - 1) * SW;
+#pragma unroll
+      for (int k = 0; k < VS; ++k) {
+        if (vb[k] < 0) continue;
+        add2(vc[k], s_p[vb[k] - m], s_p[vb[k] + m]);
+        vbuf[tid + k * NT] = vc[k];
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < HS; ++k) {
+      if (hb[k] < 0) continue;
+      add2(hp[k], s_p[hb[k] - nn], s_p[hb[k] + nn]);
+      hbuf[tid + k * NT] = hp[k];
     }
     __syncthreads();
     // window: two full-width rows (hp, order nn), two partial columns
-    // (vc, order nn-1)
-    {
-      const int top = (ty + NN - nn) * TW + tx, bot = (ty + NN + nn) * TW + tx;
-      const int lft = ty * SW + tx + NN - nn, rgt = ty * SW + tx + NN + nn;
-      W0 = (((W0 + s_hp[top]) + s_hp[bot]) + s_vc[lft]) + s_vc[rgt];
-      W1 = (((W1 + s_hp[HP + top]) + s_hp[HP + bot]) + s_vc[VC + lft]) +
-           s_vc[VC + rgt];
-      W2 = (((W2 + s_hp[2 * HP + top]) + s_hp[2 * HP + bot]) +
-            s_vc[2 * VC + lft]) + s_vc[2 * VC + rgt];
+    // (vc, order nn-1); a cell past its latch radius is done
+    if (nn <= rc) {
+      const float2 top = hbuf[(ty + NN - nn) * TW + tx];
+      const float2 bot = hbuf[(ty + NN + nn) * TW + tx];
+      const float2 lft = vbuf[ty * SW + tx + NN - nn];
+      const float2 rgt = vbuf[ty * SW + tx + NN + nn];
+      W.x = (((W.x + top.x) + bot.x) + lft.x) + rgt.x;
+      W.y = (((W.y + top.y) + bot.y) + lft.y) + rgt.y;
+      if (nn == rc) {
+        lat_tl = W.x;
+        lat_ts = W.y;
+      }
     }
-    __syncthreads();
-    // then widen the vertical running sum for the next radius
-    for (int i = tid; i < VC; i += NT) {
-      const int yy = i / SW, cc = i - yy * SW;
-      const int st = (yy + NN - nn) * SW + cc, sb = (yy + NN + nn) * SW + cc;
-      float a0, a1, a2, b0, b1, b2;
-      quants(s_t0[st], s_cd[st], a0, a1, a2);
-      quants(s_t0[sb], s_cd[sb], b0, b1, b2);
-      s_vc[i] = (s_vc[i] + a0) + b0;
-      s_vc[VC + i] = (s_vc[VC + i] + a1) + b1;
-      s_vc[2 * VC + i] = (s_vc[2 * VC + i] + a2) + b2;
-    }
-    // latch at the first radius holding both classes (never found: the
-    // NN-window value)
-    const float n_s = (float)((2 * nn + 1) * (2 * nn + 1)) - W1;  // exact
-    const bool ok = W1 > 0.0f && n_s > 0.0f;
-    if (!found && (ok || nn == NN)) {
-      lat_tl = W0;
-      lat_nl = fmaxf(W1, 1.0f);
-      lat_ts = W2;
-      lat_ns = fmaxf(n_s, 1.0f);
-    }
-    found = found || ok;
-    if (__syncthreads_and(found || !coastal)) break;
   }
+  // the latched means; the counts are whole numbers, exact in float
+  const float lat_nl = fmaxf((float)n_land, 1.0f);
+  const float lat_ns =
+      fmaxf((float)((2 * rc + 1) * (2 * rc + 1)) - (float)n_land, 1.0f);
   const float mul = cdc >= 0.0f ? 1.0f : -1.0f;
   return coastal ? mul * (lat_tl / lat_nl - lat_ts / lat_ns) : 0.0f;
 }
@@ -217,13 +340,10 @@ __device__ __forceinline__ void trigger_tail(
   wd_o = take ? wdn : wds;
 }
 
-template <int MODE>
-__global__ void __launch_bounds__(NT)
-ring_kernel(const Fields f, const Scalars s) {
-  if (MODE == STACKED && !f.ever[blockIdx.y * gridDim.x + blockIdx.x]) return;
-
-  const int r0 = blockIdx.y * TH, c0 = blockIdx.x * TW;
-  const int x = c0 + threadIdx.x, y = r0 + threadIdx.y;
+// One tile: every cell's outputs, or (no coastal cell) the pass-through.
+template <int MODE, int HS, int VS>
+__device__ void run_tile(const Fields& f, const Scalars& s, int r0, int c0) {
+  const int x = c0 + threadIdx.x % TW, y = r0 + threadIdx.x / TW;
   const bool inside = x < s.w && y < s.h;
   const size_t c = (size_t)y * s.w + x;
 
@@ -246,7 +366,7 @@ ring_kernel(const Fields f, const Scalars s) {
     return;
   }
 
-  const float n_thc = ring_thc_tile(f, s, r0, c0, coastal, cdc);
+  const float n_thc = ring_thc_tile<HS, VS>(f, s, r0, c0, coastal, cdc);
   if (!inside) return;
   if (MODE == THC) {
     f.sb_out[c] = n_thc;
@@ -270,27 +390,155 @@ ring_kernel(const Fields f, const Scalars s) {
   }
 }
 
-// Launch one mode over the full tile grid of an (h, w) field; returns
-// cudaGetLastError().
-template <int MODE>
-int launch(const Fields& f, const Scalars& s, void* stream) {
-  const size_t sh = TH + 2 * s.nn, sw = TW + 2 * s.nn;
-  const size_t smem = sizeof(float) * (2 * sh * sw + 3 * sh * TW + 3 * TH * sw);
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        ring_kernel<MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    // More than a block may hold (nn too large): report it, and clear the
-    // error so the next launch does not read it back as its own.
-    if (err != cudaSuccess) {
-      cudaGetLastError();
-      return (int)err;
+// Up to 64 tiles' ever-coastal flags, from `first` on: bit i for tile
+// first + i.  Sixteen mask bytes a load where they lie inside the mask and
+// it is 16-byte aligned, so every load is in flight at once.
+__device__ unsigned long long ever_bits(const unsigned char* ever, int first,
+                                        int count, int ntiles) {
+  const bool vec = (reinterpret_cast<uintptr_t>(ever) & 15) == 0;
+  unsigned long long bits = 0;
+  for (int q = 0; q < count; q += 16) {
+    const int t = first + q;
+    if (vec && q + 16 <= count && t + 16 <= ntiles) {
+      const uint4 v = *reinterpret_cast<const uint4*>(ever + t);
+      const unsigned w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+      for (int i = 0; i < 16; ++i)
+        if ((w[i / 4] >> (8 * (i % 4))) & 0xffu) bits |= 1ull << (q + i);
+    } else {
+      for (int i = 0; i < 16 && q + i < count && t + i < ntiles; ++i)
+        if (ever[t + i]) bits |= 1ull << (q + i);
     }
   }
-  const dim3 grid((s.w + TW - 1) / TW, (s.h + TH - 1) / TH);
-  const dim3 block(TW, TH);
-  ring_kernel<MODE><<<grid, block, smem, (cudaStream_t)stream>>>(f, s);
+  return bits;
+}
+
+// B4 and B5: one block per tile.  B1, persistent: the ever-coastal tiles,
+// in tile order, are dealt round-robin over the G = gridDim.x blocks by
+// their rank among them: block b runs ranks b, b + G, b + 2G, ...  Every
+// block ranks them itself: each thread reads the flags of a run of up to
+// 64 tiles at once, a block scan of the runs' counts gives the ranks.  No
+// list leaves the block and no atomic is needed; coastal tiles cluster,
+// and dealing by rank, not by tile index, spreads each cluster evenly.
+template <int MODE, int HS, int VS>
+__global__ void __launch_bounds__(NT, HS <= 4 ? 2 : 1)
+ring_kernel(const Fields f, const Scalars s) {
+  __shared__ int s_list[NT];
+  __shared__ int s_warp[NWARP];
+  const int nj = (s.w + TW - 1) / TW;
+  const int ntiles = nj * ((s.h + TH - 1) / TH);
+  if (MODE != STACKED) {
+    const int tile = blockIdx.x;
+    run_tile<MODE, HS, VS>(f, s, (tile / nj) * TH, (tile % nj) * TW);
+    return;
+  }
+  const int G = gridDim.x, b = blockIdx.x;
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+
+  int base = 0;  // ever-coastal tiles before this round
+  for (int c0 = 0; c0 < ntiles; c0 += NT * RUN) {
+    // this thread's run: a multiple of 16 tiles, so its loads are aligned
+    const int n = min(ntiles - c0, NT * RUN);
+    const int per = ((n + NT - 1) / NT + 15) / 16 * 16;
+    const int first = c0 + threadIdx.x * per;
+    const unsigned long long bits =
+        first < ntiles ? ever_bits(f.ever, first, per, ntiles) : 0ull;
+    // exclusive scan of the runs' counts over the block
+    const int cnt = __popcll(bits);
+    int inc = cnt;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int u = __shfl_up_sync(0xffffffffu, inc, o);
+      if (lane >= o) inc += u;
+    }
+    if (lane == 31) s_warp[warp] = inc;
+    __syncthreads();
+    int off = inc - cnt, count = 0;
+    for (int k = 0; k < NWARP; ++k) {
+      off += k < warp ? s_warp[k] : 0;
+      count += s_warp[k];
+    }
+    // this block's ordinals in the round: ranks in [base, base + count)
+    // congruent to b, the ordinal of rank r being (r - b) / G.  A round
+    // spans NT * RUN tiles, so s_list holds a block's share while
+    // G >= RUN or G covers every tile (the launcher refuses other grids).
+    const int o0 = (max(base - b, 0) + G - 1) / G;
+    const int o1 = (max(base + count - b, 0) + G - 1) / G;
+    int rank = base + off;
+    for (unsigned long long m = bits; m; m &= m - 1, ++rank)
+      if (rank % G == b)
+        s_list[(rank - b) / G - o0] = first + __ffsll((long long)m) - 1;
+    __syncthreads();
+    for (int k = 0; k < o1 - o0; ++k) {
+      const int tile = s_list[k];
+      run_tile<MODE, HS, VS>(f, s, (tile / nj) * TH, (tile % nj) * TW);
+    }
+    base += count;
+    __syncthreads();  // the list and counts are read before they change
+  }
+}
+
+// One build's launch configuration at one radius on one device: the
+// buffers of running sums (2 where they fit a block's shared memory, else
+// 1), its shared memory, and the blocks the card holds at once.
+struct Config {
+  int dev = -1, nn = -1, nbuf = 0, resident = 0;
+  size_t smem = 0;
+};
+
+// The launch of one build over the tiles of an (h, w) field: B1 on its
+// persistent grid (the blocks the card holds at once, at most one per
+// tile), B4 and B5 one block per tile.  The configuration is worked out
+// at the first launch at a radius and kept, so a launch at the radius of
+// the one before costs no driver query.  Returns 0, or the refusal of the
+// shared memory (and clears it, so the next launch does not read it back
+// as its own).
+template <int MODE, int HS, int VS>
+int launch_build(const Fields& f, Scalars s, cudaStream_t st) {
+  auto kernel = ring_kernel<MODE, HS, VS>;
+  static Config c;
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (c.dev != dev || c.nn != s.nn) {
+    cudaError_t err = cudaSuccess;
+    int per_sm = 0, nbuf = 2;
+    size_t smem = 0;
+    for (; nbuf >= 1; --nbuf) {
+      smem = smem_bytes(s.nn, nbuf);
+      err = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      if (err == cudaSuccess)
+        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                            NT, smem);
+      if (err == cudaSuccess && per_sm < 1)
+        err = cudaErrorInvalidConfiguration;
+      if (err == cudaSuccess) break;
+      cudaGetLastError();
+    }
+    if (err != cudaSuccess) return (int)err;
+    int sms = 0;
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    c = Config{dev, s.nn, nbuf, per_sm * sms, smem};
+  }
+  s.nbuf = c.nbuf;
+  const int ntiles = ((s.w + TW - 1) / TW) * ((s.h + TH - 1) / TH);
+  const int grid =
+      MODE == STACKED && c.resident < ntiles ? c.resident : ntiles;
+  // B1's s_list holds a block's share of a round only where G >= RUN
+  if (grid < ntiles && grid < RUN) return (int)cudaErrorInvalidConfiguration;
+  kernel<<<grid, NT, c.smem, st>>>(f, s);
   return (int)cudaGetLastError();
+}
+
+// The elements of hp ((TH+2NN) x TW) and vc (TH x (TW+2NN)) per thread
+// decide the build: NN <= 24 owns at most 4 and 3, NN <= 64 9 and 5.  The
+// shared memory refuses NN > 57 on an H100 (227 KB a block).
+template <int MODE>
+int launch(const Fields& f, const Scalars& s, void* stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (s.nn <= 24) return launch_build<MODE, 4, 3>(f, s, st);
+  if (s.nn <= 64) return launch_build<MODE, 9, 5>(f, s, st);
+  return (int)cudaErrorInvalidValue;
 }
 
 Scalars make_scalars(int h, int w, int nn, int is_first, int upd,
@@ -298,7 +546,7 @@ Scalars make_scalars(int h, int w, int nn, int is_first, int upd,
                      float maxdist, float thresh_wind, float thresh_winddir,
                      float thresh_windch, float thresh_thc) {
   return Scalars{h, w, nn, is_first, upd, row_offset,
-                 skip_last_row ? nlat_total - 1 : nlat_total,
+                 skip_last_row ? nlat_total - 1 : nlat_total, 2,
                  maxdist, thresh_wind, thresh_winddir, thresh_windch,
                  thresh_thc};
 }

@@ -15,10 +15,12 @@ Plain versions: ``ops.trigger.trigger_cells`` (B1, B4) and
 :class:`StackedScan` is the counterpart of the JAX package's
 ``CompactStackedScan``: it owns the kernel's tile grid, the pre-filled
 output stacks and the monotone ever-coastal tile mask.  The TPU kernel ran
-over a compacted list of the ever-coastal tiles; compacting needs
-``torch.nonzero``, which waits for the device, so here the mask stays on
-the device, the launch covers the full tile grid, and a block whose tile is
-not in the mask returns at once.
+over a compacted list of the ever-coastal tiles; compacting on the host
+needs ``torch.nonzero``, which waits for the device, so here the mask stays
+on the device and the kernel compacts it itself: a persistent grid of G
+blocks (as many as the card holds at once), each ranking the set tiles and
+running those of rank b, b + G, b + 2G, ...  B4 and B5 launch one block
+per tile.
 """
 from __future__ import annotations
 

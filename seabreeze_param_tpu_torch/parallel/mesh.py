@@ -39,10 +39,14 @@ class ShardMesh:
 
 
 def _one_device(device):
-    """The single device of ``device`` (None: the current card, else the
-    CPU); a set of several devices is refused."""
+    """The single device of ``device`` (None: the current card, and an
+    error where there is none; a CPU mesh is only built when asked for); a
+    set of several devices is refused."""
     if device is None:
-        device = "cuda" if torch.cuda.is_available() else "cpu"
+        if not torch.cuda.is_available():
+            raise RuntimeError("make_mesh: no CUDA device for the default "
+                               "mesh; pass device='cpu' for a CPU mesh")
+        device = "cuda"
     if isinstance(device, (list, tuple)):
         devs = {torch.device(d) for d in device}
         if len(devs) != 1:
@@ -75,7 +79,8 @@ def make_mesh(shape=None, device=None) -> ShardMesh:
     visible card count biased toward more lon shards (the JAX package's
     rule; 1 x 1 on one card or none); ``'PYxPX'`` or ``(py, px)``: that
     many shards on ``device``.  ``device`` — one device (default: the
-    current card, else the CPU); a list naming several is refused.
+    current card; without one this raises); a list naming several is
+    refused.
     """
     device = _one_device(device)
     dims = parse_shape(shape)

@@ -93,6 +93,42 @@ def test_pass2_kernel_bit_equal_to_plain(name, dev):
                                atol=0)
 
 
+#: (h, w) of B2's outputs: under one 16 x 128 tile, exactly one tile,
+#: ragged in both axes, a width that is no multiple of four (the 4-byte
+#: copies), several whole tiles, and the 0.25-degree field.
+PASS2_SHAPES = [(3, 20), (16, 128), (37, 70), (45, 301), (64, 256),
+                (721, 1440)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", PASS2_SHAPES)
+@pytest.mark.parametrize("k", [0, 1, 6, 15])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_pass2_kernel_shapes_bit_equal_to_plain(shape, k, offset, dev):
+    """B2 against its plain version, bit for bit, on random Mmin with BIG
+    rows, BIG blocks and BIG cells, at k = 0 (one tap) to 15; ``offset``
+    1 places Mmin and so its rows off the 16-byte alignment (the scalar
+    path)."""
+    h, w = shape
+    rng = np.random.default_rng(h * 1000 + w + k)
+    m = rng.random((h + 2 * k, w)).astype(np.float32)
+    m[rng.random(h + 2 * k) < 0.3] = 1.0e30
+    m[:, : w // 3][: (h + 2 * k) // 2] = 1.0e30
+    m[rng.random(m.shape) < 0.1] = 1.0e30
+    buf = torch.empty(m.size + offset, device=dev)
+    Mmin = buf[offset:].view(m.shape)
+    Mmin.copy_(torch.as_tensor(m))
+    sdphi2 = torch.as_tensor(rng.random((h, 2 * k + 1)).astype(np.float32),
+                             device=dev)
+    po = torch.as_tensor(rng.random((h, 2 * k + 1)).astype(np.float32),
+                         device=dev)
+    before = pass2_min_cuda.launches
+    got = pass2_min_cuda(Mmin, sdphi2, po, k)
+    assert pass2_min_cuda.launches == before + 1
+    torch.testing.assert_close(got, pass2_min(Mmin, sdphi2, po, k), rtol=0,
+                               atol=0)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", sorted(GRIDS))
 @pytest.mark.parametrize("tt", [1, 5, 15])
@@ -129,6 +165,198 @@ def test_ring_kernel_matches_plain(name, tt, dev):
     torch.testing.assert_close(wd_s, ref[4], rtol=0, atol=0)
     # slot 0 was never written: it keeps the pre-fill
     assert (bufs[0][0][:-1] == float(MISSING)).all()
+
+
+#: (h, w) of B1's edge cases: under one tile, exactly one 16 x 32 tile,
+#: ragged in both axes, several tile rows and columns.
+RING_SHAPES = [(10, 20), (16, 32), (37, 70), (64, 160)]
+
+
+def _ring_step(shape, nn, coast, shift, dev, seed=0):
+    """Random NN-padded ring inputs of one step and the step's fields:
+    ``coast`` 'none' (no cell within maxdist), 'all' (every cell, land on
+    one side of a vertical coast 10 km per column away) or 'line' (a
+    diagonal coast, moved ``shift`` columns)."""
+    h, w = shape
+    rng = np.random.default_rng(seed)
+    y, x = np.mgrid[-nn:h + nn, -nn:w + nn].astype(np.float32)
+    if coast == "none":
+        cd = 500.0 + 100.0 * rng.random(y.shape)
+    elif coast == "all":
+        cd = np.clip((x - w // 2) * (360.0 / max(w, 2)), -180.0, 180.0)
+    else:
+        cd = (x + 0.5 * y - w // 3 - shift) * 10.0
+    cd = np.where(cd == 0, 1.0, cd).astype(np.float32)
+    t0 = (280.0 + 10.0 * rng.random(y.shape)).astype(np.float32)
+    D = lambda a: torch.as_tensor(np.ascontiguousarray(a), device=dev)  # noqa
+    wind = [D((5 + 3 * rng.random(shape)).astype(np.float32)),
+            D((360 * rng.random(shape) - 180).astype(np.float32))]
+    return D(t0), D(cd), D(cd[nn:nn + h, nn:nn + w]), wind
+
+
+def _ring_padded_both(t0_pad, cd_pad, cd, ws_new, wd_new, ws0, wd0, flags,
+                      params, nn):
+    """B4 and B5 against their plain versions, bit for bit."""
+    before = (ring_trigger_cuda_padded.launches, ring_thc_cuda_padded.launches)
+    got = ring_trigger_cuda_padded(t0_pad, cd_pad, cd, ws_new, wd_new, ws0,
+                                   wd0, *flags, params, nn)
+    ref = trigger_cells(cd, ws_new, wd_new, ws0, wd0, t0_pad, cd_pad, *flags,
+                        params, nn)
+    for g, want in zip(got, (ref[0], ref[3], ref[4])):
+        torch.testing.assert_close(g, want, rtol=0, atol=0)
+    n_thc = ring_thc_cuda_padded(t0_pad, cd_pad, cd, nn)
+    want, _ = ring_thc_from_padded(ring_quantities(t0_pad, cd_pad),
+                                   torch.where(cd >= 0, 1.0, -1.0), nn,
+                                   coastal=cd.abs() <= 180.0)
+    torch.testing.assert_close(n_thc, want, rtol=0, atol=0)
+    assert (ring_trigger_cuda_padded.launches,
+            ring_thc_cuda_padded.launches) == (before[0] + 1, before[1] + 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", RING_SHAPES)
+@pytest.mark.parametrize("nn", [1, 10, 19, 25, 37, 52, 53, 57])
+@pytest.mark.parametrize("coast", ["none", "all", "line"])
+def test_ring_stacked_two_steps_bit_equal_to_plain(shape, nn, coast, dev):
+    """B1 over two steps of one scan from tt = 14 (the coast moving between
+    them, so a tile can be ever-coastal and not coastal now), against
+    ``trigger_cells`` step by step: every slot and the wind state bit for
+    bit, with no ever-coastal tile ('none'), every tile ('all') or a band;
+    B4 and B5 on the same steps.  NN 1 to 24 is the first build (4 hp and
+    3 vc elements per thread), 25 to 57 the second (9 and 5), with the
+    running sums double-buffered up to 52 and single-buffered where only
+    one buffer fits a block's shared memory (53 to 57)."""
+    params = Params()
+    h, w = shape
+    rng = np.random.default_rng(nn)
+    ws0 = torch.as_tensor((5 + rng.random(shape)).astype(np.float32),
+                          device=dev)
+    wd0 = torch.as_tensor((360 * rng.random(shape) - 180).astype(np.float32),
+                          device=dev)
+    scan = StackedScan(h, w, params, dev)
+    bufs = scan.init_buffers(2, ws0, wd0)
+    ws_s, wd_s = ws0.clone(), wd0.clone()
+    ws_p, wd_p = ws0.clone(), wd0.clone()
+    for t in range(2):
+        t0_pad, cd_pad, cd, (ws_new, wd_new) = _ring_step(
+            shape, nn, coast, 6 * t, dev, seed=t)
+        flags = cadence(14 + t, params)
+        before = ring_trigger_cuda_stacked.launches
+        ring_trigger_cuda_stacked(t0_pad, cd_pad, cd, ws_new, wd_new, ws_s,
+                                  wd_s, *flags, params, nn, t, *bufs,
+                                  scan.add_coastal(cd))
+        assert ring_trigger_cuda_stacked.launches == before + 1
+        ref = trigger_cells(cd, ws_new, wd_new, ws_p, wd_p, t0_pad, cd_pad,
+                            *flags, params, nn)
+        for b, want in zip(bufs, ref):
+            torch.testing.assert_close(b[t], want, rtol=0, atol=0)
+        _ring_padded_both(t0_pad, cd_pad, cd, ws_new, wd_new, ws_p, wd_p,
+                          flags, params, nn)
+        ws_p, wd_p = ref[3], ref[4]
+        torch.testing.assert_close(ws_s, ws_p, rtol=0, atol=0)
+        torch.testing.assert_close(wd_s, wd_p, rtol=0, atol=0)
+    if coast == "none":
+        assert int(scan.ever.sum()) == 0
+    if coast == "all":
+        assert bool(scan.ever.all())
+
+
+@pytest.mark.cuda
+def test_ring_launchers_refuse_nn_58(dev):
+    """NN = 58 is the first radius whose strip and integral image overflow
+    a block's 227 KB even single-buffered: B1, B4 and B5 raise and count no
+    launch (NN = 57 runs: test_ring_stacked_two_steps_bit_equal_to_plain)."""
+    def zeros(*shape):
+        return torch.zeros(shape, device=dev)
+
+    h, w, nn, params = 8, 8, 58, Params()
+    pads = (zeros(h + 2 * nn, w + 2 * nn), zeros(h + 2 * nn, w + 2 * nn))
+    counts = lambda: (ring_trigger_cuda_stacked.launches,  # noqa: E731
+                      ring_trigger_cuda_padded.launches,
+                      ring_thc_cuda_padded.launches)
+    before = counts()
+    scan = StackedScan(h, w, params, dev)
+    bufs = scan.init_buffers(1, zeros(h, w), zeros(h, w))
+    with pytest.raises(RuntimeError, match="cudaError_t"):
+        ring_trigger_cuda_stacked(*pads, *(zeros(h, w) for _ in range(5)),
+                                  False, False, params, nn, 0, *bufs,
+                                  scan.ever)
+    with pytest.raises(RuntimeError, match="cudaError_t"):
+        ring_trigger_cuda_padded(*pads, *(zeros(h, w) for _ in range(5)),
+                                 False, False, params, nn)
+    with pytest.raises(RuntimeError, match="cudaError_t"):
+        ring_thc_cuda_padded(*pads, zeros(h, w), nn)
+    assert counts() == before
+
+
+@pytest.mark.cuda
+def test_ring_stacked_many_tiles_each_written_once(dev):
+    """B1 on a field of 36000 tiles, more than one round of its ranking
+    (512 threads x 64 tiles), with ~2300 ever-coastal tiles in both rounds,
+    many more than the persistent grid's blocks: one step at tt = 15 (a
+    wind refresh, not the first step) bit-equal to plain.  A tile visited
+    twice would read the state it had just written and change its sb; a
+    tile left out would keep the pre-fill."""
+    params = Params()
+    h, w, nn = 64, 32 * 9000, 3
+    rng = np.random.default_rng(5)
+    x = np.arange(-nn, w + nn, dtype=np.float32)
+    cd_row = ((x % 1000.0) - 500.0) * 10.0 + 5.0  # a coast every 1000 columns
+    cd_full = np.broadcast_to(cd_row, (h + 2 * nn, w + 2 * nn))
+    D = lambda a: torch.as_tensor(np.ascontiguousarray(a), device=dev)  # noqa
+    cd_pad = D(cd_full.astype(np.float32))
+    t0_pad = D((280.0 + 10.0 * rng.random(cd_full.shape)).astype(np.float32))
+    cd = cd_pad[nn:nn + h, nn:nn + w].contiguous()
+    ws_new, ws0 = (D((5 + 3 * rng.random((h, w))).astype(np.float32))
+                   for _ in range(2))
+    wd_new, wd0 = (D((360 * rng.random((h, w)) - 180).astype(np.float32))
+                   for _ in range(2))
+    scan = StackedScan(h, w, params, dev)
+    ever = scan.add_coastal(cd)
+    n_ever = int(ever.sum())
+    assert ever.numel() == 36000 > 512 * 64 and 2000 < n_ever < 3000
+    assert int(ever[:512 * 64].sum()) < n_ever  # coastal tiles in round 2
+    bufs = scan.init_buffers(1, ws0, wd0)
+    ws_s, wd_s = ws0.clone(), wd0.clone()
+    flags = cadence(15, params)
+    assert not flags[0] and flags[1]
+    ring_trigger_cuda_stacked(t0_pad, cd_pad, cd, ws_new, wd_new, ws_s, wd_s,
+                              *flags, params, nn, 0, *bufs, ever)
+    ref = trigger_cells(cd, ws_new, wd_new, ws0, wd0, t0_pad, cd_pad, *flags,
+                        params, nn)
+    for b, want in zip(bufs, ref):
+        torch.testing.assert_close(b[0], want, rtol=0, atol=0)
+    torch.testing.assert_close(ws_s, ref[3], rtol=0, atol=0)
+    torch.testing.assert_close(wd_s, ref[4], rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_stacked_scan_global025_matches_plain(dev):
+    """``TriggerPipeline.run`` at 0.25 deg (721 x 1440), three steps from
+    tt = 14 across the refresh, ice appearing at step 1: the kernel path (B2
+    + B1) against the plain path, per-step fields bit for bit and the final
+    wind state bit-equal; one B1 launch per step."""
+    nlat, nlon = 721, 1440
+    grid = Grid.regular(nlat, nlon)
+    lsm, z, std, pres, theta, u, v, ci = make_world(nlat, nlon, 4, 3, seed=3)
+    ci[1:, :70, :] = 0.8
+    runs = {}
+    for uk in (None, False):
+        pipe = TriggerPipeline(grid, device=dev, use_kernels=uk)
+        state = TriggerState(
+            tt=14, thc=torch.zeros((nlat, nlon), device=dev),
+            windspeed=torch.full((nlat, nlon), 5.0, device=dev),
+            winddir=torch.full((nlat, nlon), 90.0, device=dev))
+        before = ring_trigger_cuda_stacked.launches
+        runs[uk] = pipe.run(state, theta, u, v, lsm, z, std, pres, ci_t=ci)
+        assert ring_trigger_cuda_stacked.launches - before == (
+            3 if uk is None else 0)
+    (ks, ko), (ps, po) = runs[None], runs[False]
+    for key in po:
+        torch.testing.assert_close(ko[key], po[key], rtol=0, atol=0)
+    for key in ("windspeed", "winddir"):
+        torch.testing.assert_close(getattr(ks, key), getattr(ps, key),
+                                   rtol=0, atol=0)
 
 
 @pytest.mark.cuda
@@ -182,7 +410,7 @@ def test_launchers_reject_oversized_shared_memory(dev):
     with pytest.raises(RuntimeError, match="cudaError_t"):
         pass2_min_cuda(zeros(10 + 2 * k, 16), zeros(10, 2 * k + 1),
                        zeros(10, 2 * k + 1), k)
-    h, w, nn = 8, 8, 60                       # B1: 246784 bytes per block
+    h, w, nn = 8, 8, 60                       # B1: 249220 bytes per block
     params = Params()
     scan = StackedScan(h, w, params, dev)
     bufs = scan.init_buffers(1, zeros(h, w), zeros(h, w))
@@ -217,7 +445,7 @@ def test_new_launchers_reject_oversized_shared_memory(dev):
         min_haversine_param_cuda(zeros(h + 2 * k, w + 2 * k),
                                  zeros(h, 2 * k + 1), zeros(h, 2 * k + 1),
                                  zeros(w, 2 * k + 1), k)
-    h, w, nn = 8, 8, 60                       # B4, B5: 246784 bytes
+    h, w, nn = 8, 8, 60                       # B4, B5: 249220 bytes
     pads = (zeros(h + 2 * nn, w + 2 * nn), zeros(h + 2 * nn, w + 2 * nn))
     with pytest.raises(RuntimeError, match="cudaError_t"):
         ring_trigger_cuda_padded(*pads, *(zeros(h, w) for _ in range(5)),

@@ -163,3 +163,16 @@ def test_mesh_helpers():
     assert field[0, 0, 0] == 0
     with pytest.raises(ValueError, match="divide"):
         split(torch.zeros(7, 8), mesh)
+
+
+@pytest.mark.parametrize("shape", ["2x4", None])
+def test_make_mesh_without_device_never_builds_a_cpu_mesh(shape,
+                                                          monkeypatch):
+    """With no device named and no card visible, make_mesh raises instead
+    of building a CPU mesh; naming the CPU still builds one."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_mesh(shape)
+    mesh = make_mesh(shape, "cpu")
+    assert mesh.device == torch.device("cpu")
+    assert mesh.shape == ((2, 4) if shape else (1, 1))

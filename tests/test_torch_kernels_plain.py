@@ -41,7 +41,7 @@ from seabreeze_param_tpu_torch.ops.cuda.distance_kernel import (
     min_haversine_param_cuda, pass2_min_cuda)
 from seabreeze_param_tpu_torch.ops.cuda.ring_kernel import (
     TILE, StackedScan, coastal_tile_pred, ring_thc_cuda_padded,
-    ring_trigger_cuda_padded, ring_trigger_cuda_stacked)
+    ring_trigger_cuda_padded, ring_trigger_cuda_stacked, tile_grid)
 
 CASES = ["small_case", "global_case"]
 MISSING = np.float32(2.0e20)
@@ -227,6 +227,43 @@ def test_coastal_tile_pred_and_prefill(shape):
     assert (wd[:, -1] == 0).all()
     ever = scan.add_coastal(torch.as_tensor(cd))
     assert ever is scan.ever and ever.sum() == pred.sum()
+
+
+#: B1's tile geometry: under one tile, exactly one tile, one tile and one
+#: cell, ragged in both axes, several whole tiles, and the 0.25-degree field.
+TILE_SHAPES = [(10, 20), (16, 32), (17, 33), (37, 70), (48, 96), (721, 1440)]
+
+
+@pytest.mark.parametrize("shape", TILE_SHAPES)
+@pytest.mark.parametrize("maxdist", [0.0, 180.0, 1.0e9])
+def test_coastal_tile_mask_geometry(shape, maxdist):
+    """tile_grid and the ever-coastal mask B1 ranks, at its tile: the mask
+    against a loop over the tiles (np.flatnonzero of the tiles holding a
+    cell with |cd| <= maxdist), the band on a tile's last row and column
+    counted, and StackedScan.add_coastal over three steps the running OR of
+    the steps' masks (monotone: a tile once set stays set)."""
+    th, tw = TILE
+    ni, nj = tile_grid(*shape)
+    assert (ni, nj) == (-(-shape[0] // th), -(-shape[1] // tw))
+    rng = np.random.default_rng(shape[0] * shape[1])
+    scan = StackedScan(*shape, TParams(maxdist=maxdist), "cpu")
+    want_ever = np.zeros(ni * nj, np.uint8)
+    for step in range(3):
+        cd = (400 * rng.standard_normal(shape)).astype(np.float32)
+        cd[np.abs(cd) < 300] = 12000.0
+        cd[-1, -1] = 0.0 if step == 1 else cd[-1, -1]   # the last cell's tile
+        pred = coastal_tile_pred(torch.as_tensor(cd), maxdist).numpy()
+        want = np.zeros(ni * nj, np.uint8)
+        for t in range(ni * nj):
+            i, j = divmod(t, nj)
+            want[t] = np.any(np.abs(cd[i * th:(i + 1) * th,
+                                       j * tw:(j + 1) * tw]) <= maxdist)
+        np.testing.assert_array_equal(np.flatnonzero(pred),
+                                      np.flatnonzero(want))
+        want_ever |= want
+        ever = scan.add_coastal(torch.as_tensor(cd))
+        np.testing.assert_array_equal(ever.numpy(), want_ever)
+    assert ever.dtype == torch.uint8 and ever.shape == (ni * nj,)
 
 
 def test_build_key_tracks_sources():
