@@ -13,6 +13,9 @@ levels, 32 steps, moving polar sea ice) and holds it against the plain path.
 Then the per-step paths, each against its plain version: the coupling API
 (``CoupledTrigger``, kernel B4, with B5 alone on the same steps), the fused
 distance (``distance_impl='fused'``, kernel B3) and the dummy model.  Then
+a kilometre-scale regional world (1024 x 1024 at 0.015 deg, whose ring
+radius takes the large build of B1, B4 and B5): ``diag`` and the coupled
+step against their plain paths, and B1's large build timed.  Then
 the decomposed run on a 2 x 4 mesh of the one card: the halo exchange B6
 alone against its plain version at the shard shapes of 0.25 and 0.1 deg,
 ``ShardedPipeline.run`` for 16 steps of the main world, overlapped (B6 +
@@ -30,8 +33,9 @@ check raises, so the exit code is non-zero.
 Output: a line with the card's name and power limit (``nvidia-smi``), one
 line per phase, a JSON line ``{"kernels": [...]}`` with each kernel's
 launches on its path, error against its plain version, times, bound and
-share of the bound at 0.25 deg (0.1 deg under ``global010``), and as the
-last line ``{"ok": true, "device": {...}}``.  Without a CUDA device it
+share of the bound at 0.25 deg (0.1 deg under ``global010``; the large
+build at the fine world), and as the last line ``{"ok": true, "device":
+{...}}``.  Without a CUDA device it
 exits non-zero and prints no result.
 Imports nothing of JAX.
 """
@@ -59,6 +63,9 @@ HALO_FILLS = (("clamp", True), ("clamp", False), ("zero", False))
 #: The driver phase's series: the main world's first 12 steps as 3 daily
 #: files of 4 six-hourly steps (its ice edge moves at step 8, in file 3).
 DRIVER_DAYS, DRIVER_STEPS = 3, 4
+#: The fine regional world: FINE_N x FINE_N cells FINE_SPACING degrees
+#: apart from 55 N southward, FINE_STEPS steps on 4 levels.
+FINE_N, FINE_SPACING, FINE_STEPS = 1024, 0.015, 8
 
 
 def log(msg):
@@ -140,18 +147,25 @@ def device_ms(fn, reps=20, flush=True):
 PEAK_BYTES, PEAK_F32 = 3.35e12, 67e12
 
 
-def timing(kernel, plain, nbytes, ops, *, library=None, library_note=None):
-    """A kernel's times beside its bound: ``device_ms``, ``call_ms``, the plain version's device time, the least time the card
-    could take (``bound_ms``: the larger of ``nbytes`` over the memory rate
-    and ``ops`` over the float32 rate, ``bound_by`` saying which) and its
-    share of the device time, and the one library call's device time
-    (``library``, else null with ``library_note`` saying why)."""
+def timing(kernel, plain, nbytes, ops, *, library=None, library_note=None,
+           plain_queued=False):
+    """A kernel's times beside its bound: ``device_ms``, ``call_ms``, the
+    plain version's device time, the least time the card could take
+    (``bound_ms``: the larger of ``nbytes`` over the memory rate and
+    ``ops`` over the float32 rate, ``bound_by`` saying which) and its share
+    of the device time, and the one library call's device time
+    (``library``, else null with ``library_note`` saying why).  With
+    ``plain_queued`` the plain version is timed by :func:`call_ms`: it
+    launches more kernels than the card queues (~1000), so the host cannot
+    get ahead of the device and ``device_ms`` cannot run; the device is
+    then busy throughout and the events time it."""
     dev = device_ms(kernel)
     by_bytes, by_ops = nbytes / PEAK_BYTES * 1e3, ops / PEAK_F32 * 1e3
     bound_ms = max(by_bytes, by_ops)
     return dict(
         device_ms=dev, call_ms=call_ms(kernel),
-        plain_ms=device_ms(plain, reps=5), bound_ms=bound_ms,
+        plain_ms=call_ms(plain, reps=3) if plain_queued
+        else device_ms(plain, reps=5), bound_ms=bound_ms,
         bound_by="bytes" if by_bytes >= by_ops else "operations",
         share_of_bound=bound_ms / dev, bytes=int(nbytes), ops=int(ops),
         library_ms=None if library is None else device_ms(library),
@@ -539,6 +553,201 @@ def phase_main(out):
     out.update(launches=launches, ms_per_step=ms,
                plain_ms_per_step=plain_secs / T * 1e3,
                resident_ms_per_step=resident)
+
+
+@functools.cache
+def fine_world():
+    """A kilometre-scale regional world: ``(grid, (lsm, z, std, pres, theta,
+    u, v, ci))``, 1024 x 1024 cells 0.015 deg apart (about 1.5 km, the
+    spacing of convection-permitting regional models), 55 to 39.655 N, 4
+    levels, 8 steps of ``bench.make_world`` fields.  k = 93 and NN ~97:
+    the ring kernels' large build.  Built once."""
+    from bench import make_world
+    from seabreeze_param_tpu_torch.core.grid import Grid
+    n, d = FINE_N, FINE_SPACING
+    grid = Grid.regular(n, n, lat0=55.0, lat1=55.0 - (n - 1) * d, lon0=0.0,
+                        lon1=n * d)
+    return grid, make_world(n, n, 4, FINE_STEPS, seed=3)
+
+
+def diag_nn(grid):
+    """The ring radius NN that ``diag`` ran at on ``grid`` (its sticky
+    per-grid bound)."""
+    from seabreeze_param_tpu_torch import api
+    key = (grid.lon.tobytes(), grid.lat.tobytes())
+    return max(v for k, v in api._CACHE.items()
+               if k[:2] == key and k[-1] == "ring_nn")
+
+
+def phase_fine(out):
+    """The fine regional world (:func:`fine_world`), whose ring radius takes
+    the large build of B1, B4 and B5: ``diag`` for 8 steps, kernel path
+    against plain (final ws/wd bit-equal); the coupled step
+    (``prepare_mask`` + ``physics``, B2 + B4) over the same steps against
+    plain; B1, B4 and B5 alone on one step, bit for bit, B1 timed."""
+    import torch
+    from seabreeze_param_tpu_torch.api import diag
+    from seabreeze_param_tpu_torch.core.params import Params
+    from seabreeze_param_tpu_torch.core.state import TriggerState
+    from seabreeze_param_tpu_torch.coupling import CoupledTrigger
+    from seabreeze_param_tpu_torch.models.pipeline import TriggerPipeline
+    from seabreeze_param_tpu_torch.ops.cuda.ring_kernel import (
+        StackedScan, ring_limits, ring_thc_cuda_padded,
+        ring_trigger_cuda_padded, ring_trigger_cuda_stacked)
+    from seabreeze_param_tpu_torch.ops.ring_search import (
+        ring_quantities, ring_thc_from_padded)
+    from seabreeze_param_tpu_torch.ops.trigger import (cadence, prepare_step,
+                                                       trigger_cells)
+
+    grid, (lsm, z, std, pres, theta, u, v, ci) = fine_world()
+    T, nlat, nlon = theta.shape
+    dev = torch.device("cuda")
+    args = (1, lsm, z, std, grid.lon, grid.lat, pres, u, v, theta, ci)
+
+    def run(**kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = diag(*args, device="cuda", full_output=True, **kw)
+        torch.cuda.synchronize()
+        return r, (time.perf_counter() - t0) / T * 1e3
+
+    run()                                       # warm-up
+    zero_launches()
+    kern, kms = run()
+    launches = {n: c for n, c in read_launches().items() if c}
+    want = {"ring_trigger_stacked": T, "pass2_min": T + 1}  # + the probe
+    if launches != want:
+        raise AssertionError(f"fine diag launches {launches}, want {want}")
+    nn = diag_nn(grid)
+    large_from = ring_limits()[0]
+    if nn < large_from:
+        raise AssertionError(f"fine diag ran at NN = {nn}: not the large "
+                             f"build")
+    plain, pms = run(use_kernels=False)
+    if kern[0] != plain[0] or kern[0] != 1 + T:
+        raise AssertionError("fine diag: tt differs")
+    worst = check_fields(kern[5], plain[5], "fine diag per-step outputs")
+    check_fields(dict(thc=kern[2], windspeed=kern[3], winddir=kern[4]),
+                 dict(thc=plain[2], windspeed=plain[3], winddir=plain[4]),
+                 "fine diag final state", bit_state=("windspeed", "winddir"))
+    sb = kern[1]
+    if sb.shape != (T, nlat, nlon) or not np.isfinite(sb).all():
+        raise AssertionError("fine diag: sb_con shape or finiteness")
+    miss = float((sb == MISSING).mean())
+    trig = int(((sb != MISSING) & (sb != 0)).sum())
+
+    # the coupled step on every step of the world
+    d = {k: torch.as_tensor(a, device=dev) for k, a in dict(
+        lsm=lsm, z=z, std=std, pres=pres, theta=theta, u=u, v=v,
+        ci=ci).items()}
+
+    def drive(uk):
+        ct = CoupledTrigger(grid, use_kernels=uk, device=dev)
+        state = TriggerState.zeros((nlat, nlon), dev)
+        outs = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for t in range(T):
+            cd = ct.prepare_mask(d["lsm"], d["ci"][t])
+            state, o = ct.physics(state, d["pres"], d["u"][t], d["v"][t],
+                                  d["theta"][t], d["z"], d["std"], cd)
+            outs.append(o)
+        torch.cuda.synchronize()
+        return state, outs, (time.perf_counter() - t0) / T * 1e3
+
+    drive(None)                                 # warm-up
+    zero_launches()
+    cstate, couts, cms = drive(None)
+    claunches = {n: c for n, c in read_launches().items() if c}
+    if claunches != {"ring_trigger_padded": T, "pass2_min": T}:
+        raise AssertionError(f"fine coupled launches {claunches}")
+    pstate, pouts, cpms = drive(False)
+    cworst = 0.0
+    for t, (ko, po) in enumerate(zip(couts, pouts)):
+        cworst = max(cworst, check_fields(
+            {k: o.cpu() for k, o in ko.items()},
+            {k: o.cpu() for k, o in po.items()}, f"fine coupled step {t}"))
+    check_fields(final_fields(cstate), final_fields(pstate),
+                 "fine coupled final state",
+                 bit_state=("windspeed", "winddir"))
+    cnn = CoupledTrigger(grid, device=dev).pipeline().nn_max
+
+    # B1, B4 and B5 alone on step 2's inputs at diag's NN
+    params = Params()
+    pipe = TriggerPipeline(grid, device=dev)
+    cd = pipe.distance_field(d["lsm"], d["ci"][2])
+    _, ws_new, wd_new, t0_pad, cd_pad = prepare_step(
+        d["theta"][2], d["u"][2], d["v"][2], cd, d["z"], d["std"],
+        d["pres"], params, nn)
+    rng = np.random.default_rng(1)
+    ws0 = torch.as_tensor((5 + rng.random((nlat, nlon))).astype(np.float32),
+                          device=dev)
+    wd0 = torch.as_tensor(
+        (360 * rng.random((nlat, nlon)) - 180).astype(np.float32), device=dev)
+    flags = cadence(15, params)
+    ref = trigger_cells(cd, ws_new, wd_new, ws0, wd0, t0_pad, cd_pad, *flags,
+                        params, nn)
+    scan = StackedScan(nlat, nlon, params, dev)
+    bufs = scan.init_buffers(1, ws0, wd0)
+    ever = scan.add_coastal(cd)
+    ws_s, wd_s = ws0.clone(), wd0.clone()
+
+    def kernel():
+        ring_trigger_cuda_stacked(t0_pad, cd_pad, cd, ws_new, wd_new, ws_s,
+                                  wd_s, *flags, params, nn, 0, *bufs, ever)
+
+    def plain_b1():
+        return trigger_cells(cd, ws_new, wd_new, ws0, wd0, t0_pad, cd_pad,
+                             *flags, params, nn)
+
+    kernel()
+    err = 0.0
+    for b, r, what in zip(bufs, ref, ("sb", "ws", "wd")):
+        err = max(err, bit_equal(b[0], r, f"fine B1 {what}"))
+    got = ring_trigger_cuda_padded(t0_pad, cd_pad, cd, ws_new, wd_new, ws0,
+                                   wd0, *flags, params, nn)
+    for g, r, what in zip(got, (ref[0], ref[3], ref[4]), ("sb", "ws", "wd")):
+        bit_equal(g, r, f"fine B4 {what}")
+    bit_equal(ring_thc_cuda_padded(t0_pad, cd_pad, cd, nn),
+              ring_thc_from_padded(ring_quantities(t0_pad, cd_pad),
+                                   torch.where(cd >= 0, 1.0, -1.0), nn,
+                                   coastal=cd.abs() <= float(np.float32(
+                                       params.maxdist)))[0], "fine B5")
+    unit = tile_mask(cd, params.maxdist)
+    tiles, cells, adds = ring_work(cd_pad, cd, nn, params.maxdist, unit)
+    # the plain version runs ~12 kernels a radius, ~2500 at NN = 208
+    t = timing(kernel, plain_b1, 48 * cells + unit.numel(), adds,
+               library_note="none: no PyTorch call runs an expanding-ring "
+                            "search", plain_queued=True)
+    radii = latch_radius(cd_pad, cd, nn, params.maxdist)
+    band = radii[radii > 0].double()
+    f = int(unit.sum()) / unit.numel()
+    smi = nvidia_smi()
+    log(f"# fine regional {nlat}x{nlon} at {FINE_SPACING} deg (k="
+        f"{pipe.k}, NN={nn}: the ring kernels' large build), {smi}: diag "
+        f"T={T} kernel path {kms:.3f} ms/step, plain path {pms:.3f} "
+        f"ms/step; launches {launches}; matches plain (max |diff| "
+        f"{worst:.3g}, final ws/wd bit-equal); sb missing fraction "
+        f"{miss:.4f}, nonzero triggers {trig}; coupled step (NN={cnn}) "
+        f"kernel path {cms:.3f} ms/step, plain {cpms:.3f}; launches "
+        f"{claunches}; matches plain (max |diff| {cworst:.3g}, final ws/wd "
+        f"bit-equal); B1, B4, B5 bit-equal to plain on one step; B1 "
+        f"{fmt_timing(t)} (plain: events around calls); f {f:.4f} "
+        f"({tiles} of {unit.numel()} tiles); "
+        f"latch radius over {band.numel()} coastal cells mean "
+        f"{float(band.mean()):.2f}, max {int(band.max())}")
+    out.update(launches=launches, coupled_launches=claunches, nn=nn,
+               large_from=large_from,
+               ms_per_step=kms, plain_ms_per_step=pms, coupled_ms_per_step=cms,
+               coupled_plain_ms_per_step=cpms,
+               b1=dict(max_abs_err=err, nn=nn, f=f, **t))
+
+
+def nvidia_smi():
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True).stdout.strip().splitlines()[0]
 
 
 def kernel_wrappers():
@@ -1425,16 +1634,14 @@ def main():
     import bench  # noqa: F401  (the world generator; fails outside the repo)
     import seabreeze_param_tpu_torch.api  # noqa: F401
 
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True).stdout.strip()
-    log(smi.splitlines()[0])
+    log(nvidia_smi())
     log(f"# torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)}")
 
     b2, b1, padded, main_out = {}, {}, {}, {}
     coupling, fused, dummy = {}, {}, {}
     b6, sharded, diag_mesh, dummy_sharded, driver = {}, {}, {}, {}, {}
+    fine = {}
     phase_build()
     for name in ("global025", "global010"):
         phase_pass2(name, b2)
@@ -1446,6 +1653,7 @@ def main():
     phase_coupling(coupling)
     phase_fused(fused)
     phase_dummy(dummy)
+    phase_fine(fine)
     phase_sharded(sharded)
     phase_diag_mesh(diag_mesh)
     phase_dummy_sharded(dummy_sharded)
@@ -1456,6 +1664,8 @@ def main():
 
     src = "seabreeze_param_tpu_torch/csrc/"
     pal = "seabreeze_param_tpu/ops/pallas/"
+    keys = ("max_abs_err", "device_ms", "call_ms", "plain_ms", "bound_ms",
+            "bound_by", "share_of_bound", "library_ms", "library", "f", "nn")
     kernels = []
     for name, cu, replaces, meas, launches, path in (
             ("pass2_min", "pass2_min.cu", "distance_kernel.py:233", b2,
@@ -1475,19 +1685,20 @@ def main():
              "standalone op on the coupled steps"),
             ("halo_exchange", "halo_exchange.cu", "halo_kernel.py:183", b6,
              sharded["launches"]["overlap"]["halo_exchange"],
-             f"sharded: ShardedPipeline.run on {SHARD_MESH}, overlapped")):
-        keys = ("max_abs_err", "device_ms", "call_ms", "plain_ms",
-                "bound_ms", "bound_by", "share_of_bound", "library_ms",
-                "library", "f")
-        m = {key: meas["global025"][key] for key in keys
-             if key in meas["global025"]}
+             f"sharded: ShardedPipeline.run on {SHARD_MESH}, overlapped"),
+            ("ring_trigger_stacked_large", "ring_trigger.cu",
+             "ring_kernel.py:694", {"fine": fine["b1"]},
+             fine["launches"]["ring_trigger_stacked"],
+             f"fine regional diag, NN = {fine['nn']} >= "
+             f"{fine['large_from']}: B1's large build")):
+        first, *rest = meas
+        m = {key: meas[first][key] for key in keys if key in meas[first]}
         # ``ms`` is the line's name for the kernel's device time
         kernels.append(dict(
             name=name, route="cuda", source=src + cu, replaces=pal + replaces,
-            launches=launches, ms=m["device_ms"], **m, shape="global025",
-            path=path,
-            global010={key: meas["global010"][key] for key in keys
-                       if key in meas["global010"]}))
+            launches=launches, ms=m["device_ms"], **m, shape=first, path=path,
+            **{r: {key: meas[r][key] for key in keys if key in meas[r]}
+               for r in rest}))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

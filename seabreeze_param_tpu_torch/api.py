@@ -92,6 +92,15 @@ def ring_radius(cdist0, params: Params, k: int) -> int:
         cap = min(full, 2 * cap)
 
 
+def needed_ring_nn(pipe: TriggerPipeline, cdist0) -> int:
+    """The ring radius NN ``diag`` needs on ``pipe``'s grid: its static
+    bound, or the radius probed on the first step's distance field
+    ``cdist0`` (host array) plus the margin, whichever is larger."""
+    params = pipe.params
+    return int(max(pipe.nn_max, ring_radius(cdist0, params, pipe.k)
+                   + params.ring_search_margin))
+
+
 def diag(tt, lsm, z, std, lon, lat, pres, *args, **kwargs):
     """See the module docstring and the reference docstring
     (``__init__.py:92-188``).
@@ -193,9 +202,7 @@ def diag(tt, lsm, z, std, lon, lat, pres, *args, **kwargs):
     lsm_d = torch.as_tensor(np.asarray(lsm, np.float32), device=device)
     ci0 = None if ci is None else torch.as_tensor(ci[0], device=device)
     cdist0 = pipe.distance_field(lsm_d, ci0).cpu().numpy()
-    needed = max(pipe.nn_max,
-                 ring_radius(cdist0, params, pipe.k)
-                 + params.ring_search_margin)
+    needed = needed_ring_nn(pipe, cdist0)
     nn_key = base_key + ("ring_nn",)
     prev_nn = _CACHE.get(nn_key)
     ring_nn = prev_nn if prev_nn is not None and prev_nn >= needed \

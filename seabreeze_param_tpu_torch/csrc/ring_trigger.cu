@@ -74,7 +74,23 @@
 // * The integral image is dead before the running sums are first stored,
 //   so the two share their shared memory; where two buffers of sums do not
 //   fit a block (NN > 52), one does, at a second barrier per radius.
-//   NN <= 57 fits an H100's 227 KB a block; larger radii are refused.
+//   NN <= 57 fits an H100's 227 KB a block.
+// * Larger radii (NN >= LARGE_FROM, up to MAX_NN) take the large build
+//   (HS = VS = 0, ring_thc_tile_large): the strip of a kilometre-scale
+//   grid (NN ~ 100-160) and its integral image far exceed a block's
+//   shared memory, so nothing of the strip is kept there.  The running
+//   sums live in shared memory (no register arrays, so no spills at any
+//   NN), each element owned by one thread: hp rows ty, ty + 16, ... at
+//   column tx, vc columns tx, tx + 32, ... of row ty, so every warp reads
+//   32 neighbouring strip cells.  A radius reads the strip cells it adds
+//   straight from t0_pad/cd_pad (L1/L2) and forms (tl, ts) with the
+//   roundings of the strip load, so the sums are the same floats.  The
+//   land channel is summed as 16-bit integers beside them (exact), which
+//   gives each cell its latch and land count during the loop; the tile
+//   stops after the radius at which its last coastal cell latched (a
+//   block-wide vote in the radius's one barrier).  Two buffers of sums
+//   fit a block up to NN = 109, one (a second barrier per radius) up to
+//   MAX_NN = 224; larger radii are refused.
 // * A tile with no coastal cell skips the strip load and the ring loop:
 //   MISSING sb (n_thc 0 for B5) and the wind passed through.  B1's tiles
 //   outside the ever-coastal set are never visited: their slots keep the
@@ -98,6 +114,16 @@ enum Mode { STACKED = 0, PADDED = 1, THC = 2 };
 // The most tiles one thread of B1 ranks per round of its persistent loop.
 constexpr int RUN = 64;
 
+// The first NN of the large build, and the last NN any build takes; the
+// wrapper reads both through sbz_ring_limits.  LARGE_FROM is a build option
+// only so that tools/compare_designs.py can time the large build below its
+// threshold (-DSBZ_RING_LARGE_FROM=1); the port builds it at 58.
+#ifndef SBZ_RING_LARGE_FROM
+#define SBZ_RING_LARGE_FROM 58
+#endif
+constexpr int LARGE_FROM = SBZ_RING_LARGE_FROM;
+constexpr int MAX_NN = 224;
+
 // Dynamic shared memory of one block at ring radius nn: the strip of
 // (TH+2nn) x (TW+2nn) padded cells, then nbuf buffers each of the hp rows
 // (TH+2nn) x TW and the vc columns TH x (TW+2nn), one float2 (tl, ts) per
@@ -109,6 +135,13 @@ size_t smem_bytes(int nn, int nbuf) {
   const size_t sums = sizeof(float2) * nbuf * (sh * TW + TH * sw);
   const size_t image = sizeof(int) * (sh + 1) * (sw + 1);
   return sizeof(float2) * sh * sw + (sums > image ? sums : image);
+}
+
+// The large build's: nbuf buffers of the hp and vc elements as float2 (tl,
+// ts), then as many 16-bit land counts.  NN = 224 single-buffered: 220 KB.
+size_t smem_bytes_large(int nn, int nbuf) {
+  const size_t n = (TH + 2 * nn) * TW + TH * (TW + 2 * nn);
+  return nbuf * n * (sizeof(float2) + sizeof(unsigned short));
 }
 
 // Floor modulo by 360 (jnp.mod / torch.remainder), not C's fmod.
@@ -317,6 +350,155 @@ __device__ float ring_thc_tile(const Fields& f, const Scalars& s, int r0,
   return coastal ? mul * (lat_tl / lat_nl - lat_ts / lat_ns) : 0.0f;
 }
 
+// A strip cell read from device memory, as the strip load of ring_thc_tile
+// forms it: (t0*land, t0 - t0*land) and land; outside the padded field t0
+// 0 and the land sentinel.
+struct StripCell {
+  float t0, cd;
+};
+
+__device__ __forceinline__ StripCell strip_load(const Fields& f, int gr,
+                                                int gc, int ph, int pw) {
+  if (gr >= ph || gc >= pw) return StripCell{0.0f, SENTINEL};
+  const size_t i = (size_t)gr * pw + gc;
+  return StripCell{__ldg(f.t0_pad + i), __ldg(f.cd_pad + i)};
+}
+
+__device__ __forceinline__ float2 strip_q(const StripCell& c) {
+  const float land = c.cd >= 0.0f ? 1.0f : 0.0f;
+  const float tl = __fmul_rn(c.t0, land);
+  return make_float2(tl, __fsub_rn(c.t0, tl));
+}
+
+// One running-sum element to its next order: v += q[-d] + q[+d], the land
+// count likewise.
+__device__ __forceinline__ void add_pair(float2& v, int& l,
+                                         const StripCell& a,
+                                         const StripCell& b) {
+  add2(v, strip_q(a), strip_q(b));
+  l += (a.cd >= 0.0f) + (b.cd >= 0.0f);
+}
+
+// The large build's ring search of the tile at (r0, c0) (NN >= LARGE_FROM),
+// run by every thread of the block; the same n_thc, bit for bit, as
+// ring_thc_tile.  Per radius nn: hp to order nn and vc to order nn-1, each
+// thread its own elements (read from buffer `src`, written to `dst`), the
+// strip cells they add read from device memory four elements deep; one
+// barrier, which also asks whether any coastal cell is still to latch;
+// then each such cell's window.
+__device__ float ring_thc_tile_large(const Fields& f, const Scalars& s,
+                                     int r0, int c0, bool coastal,
+                                     float cdc) {
+  constexpr int D = 4;  // elements whose strip cells are loaded at once
+  const int NN = s.nn;
+  const int SH = TH + 2 * NN, SW = TW + 2 * NN;
+  const int ph = s.h + 2 * NN, pw = s.w + 2 * NN;
+  const int tx = threadIdx.x % TW, ty = threadIdx.x / TW;
+  const int nh = SH * TW, nv = TH * SW;  // hp and vc elements
+
+  extern __shared__ float2 smem2[];
+  float2* s_sum = smem2;  // nbuf x (hp, vc)
+  unsigned short* s_land =
+      reinterpret_cast<unsigned short*>(smem2 + s.nbuf * (nh + nv));
+
+  // order 0: hp into buffer 0, vc into the buffer radius 1 reads it from
+  const int vb0 = s.nbuf - 1;
+  for (int r = ty; r < SH; r += TH) {
+    const StripCell c = strip_load(f, r0 + r, c0 + tx + NN, ph, pw);
+    s_sum[r * TW + tx] = strip_q(c);
+    s_land[r * TW + tx] = c.cd >= 0.0f;
+  }
+  for (int x = tx; x < SW; x += TW) {
+    const StripCell c = strip_load(f, r0 + ty + NN, c0 + x, ph, pw);
+    const int e = vb0 * (nh + nv) + nh + ty * SW + x;
+    s_sum[e] = strip_q(c);
+    s_land[e] = c.cd >= 0.0f;
+  }
+  const StripCell c0c = strip_load(f, r0 + ty + NN, c0 + tx + NN, ph, pw);
+  float2 W = strip_q(c0c);
+  int wl = c0c.cd >= 0.0f;
+
+  bool pending = coastal;
+  int rc = 0, n_land = 0;
+  float lat_tl = 0.0f, lat_ts = 0.0f;
+  for (int nn = 1; nn <= NN; ++nn) {
+    const int src = s.nbuf == 2 ? ((nn - 1) & 1) * (nh + nv) : 0;
+    const int dst = s.nbuf == 2 ? (nn & 1) * (nh + nv) : 0;
+    if (s.nbuf == 1 && nn > 1) __syncthreads();
+    // hp to order nn: rows ty, ty + TH, ... at column tx
+    for (int r = ty; r < SH; r += D * TH) {
+      StripCell a[D], b[D];
+#pragma unroll
+      for (int u = 0; u < D; ++u) {
+        const int rr = r + u * TH, gr = rr < SH ? r0 + rr : ph;
+        a[u] = strip_load(f, gr, c0 + tx + NN - nn, ph, pw);
+        b[u] = strip_load(f, gr, c0 + tx + NN + nn, ph, pw);
+      }
+#pragma unroll
+      for (int u = 0; u < D; ++u) {
+        const int e = (r + u * TH) * TW + tx;
+        if (r + u * TH >= SH) break;
+        float2 v = s_sum[src + e];
+        int l = s_land[src + e];
+        add_pair(v, l, a[u], b[u]);
+        s_sum[dst + e] = v;
+        s_land[dst + e] = (unsigned short)l;
+      }
+    }
+    // vc to order nn-1 (order 0 is stored above): columns tx, tx + TW, ...
+    // of row ty
+    if (nn > 1) {
+      const int m = nn - 1;
+      for (int x = tx; x < SW; x += D * TW) {
+        StripCell a[D], b[D];
+#pragma unroll
+        for (int u = 0; u < D; ++u) {
+          const int xx = x + u * TW, gc = xx < SW ? c0 + xx : pw;
+          a[u] = strip_load(f, r0 + ty + NN - m, gc, ph, pw);
+          b[u] = strip_load(f, r0 + ty + NN + m, gc, ph, pw);
+        }
+#pragma unroll
+        for (int u = 0; u < D; ++u) {
+          const int e = nh + ty * SW + x + u * TW;
+          if (x + u * TW >= SW) break;
+          float2 v = s_sum[src + e];
+          int l = s_land[src + e];
+          add_pair(v, l, a[u], b[u]);
+          s_sum[dst + e] = v;
+          s_land[dst + e] = (unsigned short)l;
+        }
+      }
+    }
+    if (!__syncthreads_or(pending)) break;  // every coastal cell latched
+    // window: two full-width rows (hp, order nn), two partial columns (vc,
+    // order nn-1); the first radius holding both classes latches
+    if (pending) {
+      const int t = dst + (ty + NN - nn) * TW + tx;
+      const int bo = dst + (ty + NN + nn) * TW + tx;
+      const int lf = dst + nh + ty * SW + tx + NN - nn;
+      const int rg = dst + nh + ty * SW + tx + NN + nn;
+      const float2 top = s_sum[t], bot = s_sum[bo];
+      const float2 lft = s_sum[lf], rgt = s_sum[rg];
+      W.x = (((W.x + top.x) + bot.x) + lft.x) + rgt.x;
+      W.y = (((W.y + top.y) + bot.y) + lft.y) + rgt.y;
+      wl += s_land[t] + s_land[bo] + s_land[lf] + s_land[rg];
+      if ((wl > 0 && wl < (2 * nn + 1) * (2 * nn + 1)) || nn == NN) {
+        rc = nn;
+        n_land = wl;
+        lat_tl = W.x;
+        lat_ts = W.y;
+        pending = false;
+      }
+    }
+  }
+  // the latched means, as ring_thc_tile takes them
+  const float lat_nl = fmaxf((float)n_land, 1.0f);
+  const float lat_ns =
+      fmaxf((float)((2 * rc + 1) * (2 * rc + 1)) - (float)n_land, 1.0f);
+  const float mul = cdc >= 0.0f ? 1.0f : -1.0f;
+  return coastal ? mul * (lat_tl / lat_nl - lat_ts / lat_ns) : 0.0f;
+}
+
 // The trigger tail of one cell (seabreeze_diag_python.f90:236-274): sb and
 // the wind the state takes this step (before the nlats-1 row rule).
 __device__ __forceinline__ void trigger_tail(
@@ -366,7 +548,11 @@ __device__ void run_tile(const Fields& f, const Scalars& s, int r0, int c0) {
     return;
   }
 
-  const float n_thc = ring_thc_tile<HS, VS>(f, s, r0, c0, coastal, cdc);
+  float n_thc;
+  if constexpr (HS == 0)
+    n_thc = ring_thc_tile_large(f, s, r0, c0, coastal, cdc);
+  else
+    n_thc = ring_thc_tile<HS, VS>(f, s, r0, c0, coastal, cdc);
   if (!inside) return;
   if (MODE == THC) {
     f.sb_out[c] = n_thc;
@@ -421,7 +607,7 @@ __device__ unsigned long long ever_bits(const unsigned char* ever, int first,
 // list leaves the block and no atomic is needed; coastal tiles cluster,
 // and dealing by rank, not by tile index, spreads each cluster evenly.
 template <int MODE, int HS, int VS>
-__global__ void __launch_bounds__(NT, HS <= 4 ? 2 : 1)
+__global__ void __launch_bounds__(NT, HS >= 1 && HS <= 4 ? 2 : 1)
 ring_kernel(const Fields f, const Scalars s) {
   __shared__ int s_list[NT];
   __shared__ int s_warp[NWARP];
@@ -504,7 +690,7 @@ int launch_build(const Fields& f, Scalars s, cudaStream_t st) {
     int per_sm = 0, nbuf = 2;
     size_t smem = 0;
     for (; nbuf >= 1; --nbuf) {
-      smem = smem_bytes(s.nn, nbuf);
+      smem = HS == 0 ? smem_bytes_large(s.nn, nbuf) : smem_bytes(s.nn, nbuf);
       err = cudaFuncSetAttribute(
           kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
       if (err == cudaSuccess)
@@ -531,11 +717,14 @@ int launch_build(const Fields& f, Scalars s, cudaStream_t st) {
 }
 
 // The elements of hp ((TH+2NN) x TW) and vc (TH x (TW+2NN)) per thread
-// decide the build: NN <= 24 owns at most 4 and 3, NN <= 64 9 and 5.  The
-// shared memory refuses NN > 57 on an H100 (227 KB a block).
+// decide the build below LARGE_FROM: NN <= 24 owns at most 4 and 3, NN <=
+// 64 9 and 5 (whose strip fits an H100's 227 KB a block up to NN = 57).
+// From LARGE_FROM to MAX_NN the large build; beyond, a refusal.
 template <int MODE>
 int launch(const Fields& f, const Scalars& s, void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
+  if (s.nn > MAX_NN) return (int)cudaErrorInvalidValue;
+  if (s.nn >= LARGE_FROM) return launch_build<MODE, 0, 0>(f, s, st);
   if (s.nn <= 24) return launch_build<MODE, 4, 3>(f, s, st);
   if (s.nn <= 64) return launch_build<MODE, 9, 5>(f, s, st);
   return (int)cudaErrorInvalidValue;
@@ -600,4 +789,12 @@ extern "C" int sbz_ring_thc_padded(const float* t0_pad, const float* cd_pad,
       f, make_scalars(h, w, nn, 0, 0, 0, h, 0, maxdist, 0.0f, 0.0f, 0.0f,
                       0.0f),
       stream);
+}
+
+// The ring radii the launchers take: the large build from *large_from,
+// every build up to *max_nn.  Returns 0.
+extern "C" int sbz_ring_limits(int* large_from, int* max_nn) {
+  *large_from = LARGE_FROM;
+  *max_nn = MAX_NN;
+  return 0;
 }

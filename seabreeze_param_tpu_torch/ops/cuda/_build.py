@@ -38,7 +38,8 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 
-#: C signatures of the launchers; each returns ``cudaGetLastError()``.
+#: C signatures of the launchers; each returns ``cudaGetLastError()``
+#: (``sbz_ring_limits``, which reads two constants, returns 0).
 SIGNATURES = {
     # mmin, sdphi2, po, out, h, w, k, stream
     "sbz_pass2_min": (_P, _P, _P, _P, _I, _I, _I, _P),
@@ -60,6 +61,8 @@ SIGNATURES = {
                                 _F, _F, _F, _F, _F, _P),
     # t0_pad, cd_pad, cd, n_thc, h, w, nn, maxdist, stream
     "sbz_ring_thc_padded": (_P, _P, _P, _P, _I, _I, _I, _F, _P),
+    # &large_from, &max_nn: the ring radii the three launchers above take
+    "sbz_ring_limits": (_P, _P),
     # src[S], dst[S] (host pointer arrays), py, px, c, h, w, hy, hx,
     # zero_fill, exact_lon, stream
     "sbz_halo_exchange": (_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),

@@ -46,9 +46,11 @@ def halo_exchange_cuda(local, mesh, hy: int, hx: int, *,
         _build.require(x, f"shard {s}", shape, dev)
     h, w = shape[-2:]
     c = shape[0] if len(shape) == 3 else 1
-    out = [torch.empty(shape[:-2] + (h + 2 * hy, w + 2 * hx),
-                       dtype=torch.float32, device=dev)
-           for _ in range(mesh.size)]
+    # one allocation for every shard's block: each torch.empty costs the
+    # host several microseconds, and the call is host-bound
+    out = list(torch.empty((mesh.size,) + shape[:-2]
+                           + (h + 2 * hy, w + 2 * hx),
+                           dtype=torch.float32, device=dev).unbind(0))
     ptrs = ctypes.c_void_p * mesh.size
     src = ptrs(*(x.data_ptr() for x in local))
     dst = ptrs(*(o.data_ptr() for o in out))

@@ -20,9 +20,14 @@ needs ``torch.nonzero``, which waits for the device, so here the mask stays
 on the device and the kernel compacts it itself: a persistent grid of G
 blocks (as many as the card holds at once), each ranking the set tiles and
 running those of rank b, b + G, b + 2G, ...  B4 and B5 launch one block
-per tile.
+per tile.  On the card the three take ring radii NN up to the limit that
+:func:`ring_limits` reads from the kernels (their large build takes the
+widest radii) and raise beyond.
 """
 from __future__ import annotations
+
+import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -33,6 +38,25 @@ from . import _build
 
 #: The kernel's tile, (rows, columns) — TH, TW in csrc/ring_trigger.cu.
 TILE = (16, 32)
+
+
+@functools.cache
+def ring_limits():
+    """``(large_from, max_nn)``, read from the built kernels: the first ring
+    radius NN of their large build and the widest NN any build takes
+    (LARGE_FROM and MAX_NN in csrc/ring_trigger.cu).  Builds the kernels at
+    the first call."""
+    large_from, max_nn = ctypes.c_int(), ctypes.c_int()
+    _build.load().sbz_ring_limits(ctypes.byref(large_from),
+                                  ctypes.byref(max_nn))
+    return large_from.value, max_nn.value
+
+
+def _require_nn(NN: int, name: str):
+    max_nn = ring_limits()[1]
+    if NN > max_nn:
+        raise ValueError(f"{name}: NN = {NN}, the ring kernels take NN <= "
+                         f"{max_nn}")
 
 
 def tile_grid(h: int, w: int):
@@ -128,6 +152,7 @@ def ring_trigger_cuda_stacked(t0_pad, cd_pad, cd_center, ws_new, wd_new,
         wd_state.copy_(wd_st)
         return
 
+    _require_nn(NN, "ring_trigger_cuda_stacked")
     dev = t0_pad.device
     T = sb_buf.shape[0]
     if not 0 <= step_idx < T:
@@ -199,6 +224,7 @@ def ring_trigger_cuda_padded(t0_pad, cd_pad, cd_center, ws_new, wd_new,
             nlat_total=nlat_total)
         return sb, ws_st, wd_st
 
+    _require_nn(NN, "ring_trigger_cuda_padded")
     h, w, dev = _require_pads(t0_pad, cd_pad, cd_center, NN)
     nlat_total = h if nlat_total is None else int(nlat_total)
     for name, t in (("ws_new", ws_new), ("wd_new", wd_new),
@@ -246,6 +272,7 @@ def ring_thc_cuda_padded(t0_pad, cd_pad, cd_center, nn_max: int, *,
         return ring_thc_from_padded(ring_quantities(t0_pad, cd_pad), mul, NN,
                                     coastal=coastal)[0]
 
+    _require_nn(NN, "ring_thc_cuda_padded")
     h, w, dev = _require_pads(t0_pad, cd_pad, cd_center, NN)
     out = torch.empty((h, w), dtype=torch.float32, device=dev)
     lib = _build.load()

@@ -10,7 +10,9 @@ Grids include a ragged tile edge (37 x 70) and a grid smaller than one
 tile (10 x 20), whose wrap seam pushes the ring radius up.  Kernels B1 and
 B2 carry ``TriggerPipeline.run``; B3 the fused distance, B4 the per-step
 coupling path, B5 the ring search alone, B6 the halo exchange of the
-decomposed run (``ShardedPipeline``), on ragged and 1-wide meshes.
+decomposed run (``ShardedPipeline``), on ragged, 1-wide and 64-shard
+meshes.  B1, B4 and B5 run ring radii up to the widest their kernels take
+(``ring_limits``: 224, from 58 on their large build).
 """
 import numpy as np
 import pytest
@@ -28,7 +30,7 @@ from seabreeze_param_tpu_torch.ops.cuda.distance_kernel import (
     min_haversine_param_cuda, pass2_min_cuda)
 from seabreeze_param_tpu_torch.ops.cuda.halo_kernel import halo_exchange_cuda
 from seabreeze_param_tpu_torch.ops.cuda.ring_kernel import (
-    StackedScan, ring_thc_cuda_padded, ring_trigger_cuda_padded,
+    StackedScan, ring_limits, ring_thc_cuda_padded, ring_trigger_cuda_padded,
     ring_trigger_cuda_stacked)
 from seabreeze_param_tpu_torch.ops.distance import (
     device_tables, min_haversine_param_from_padded, pad_coast, pass1_extrema,
@@ -215,7 +217,8 @@ def _ring_padded_both(t0_pad, cd_pad, cd, ws_new, wd_new, ws0, wd0, flags,
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", RING_SHAPES)
-@pytest.mark.parametrize("nn", [1, 10, 19, 25, 37, 52, 53, 57])
+@pytest.mark.parametrize("nn", [1, 10, 19, 25, 37, 52, 53, 57, 58, 65, 97,
+                                109, 110, 160, "max"])
 @pytest.mark.parametrize("coast", ["none", "all", "line"])
 def test_ring_stacked_two_steps_bit_equal_to_plain(shape, nn, coast, dev):
     """B1 over two steps of one scan from tt = 14 (the coast moving between
@@ -225,7 +228,13 @@ def test_ring_stacked_two_steps_bit_equal_to_plain(shape, nn, coast, dev):
     B4 and B5 on the same steps.  NN 1 to 24 is the first build (4 hp and
     3 vc elements per thread), 25 to 57 the second (9 and 5), with the
     running sums double-buffered up to 52 and single-buffered where only
-    one buffer fits a block's shared memory (53 to 57)."""
+    one buffer fits a block's shared memory (53 to 57).  From 58 to the
+    widest radius ('max', 224) the large build (strip read from device
+    memory, sums and land counts in shared memory): double-buffered up to
+    109, single-buffered from 110; 97 is the 0.015-degree regional grid's
+    static bound, 208 the radius ``diag`` probes there."""
+    if nn == "max":
+        nn = ring_limits()[1]
     params = Params()
     h, w = shape
     rng = np.random.default_rng(nn)
@@ -262,14 +271,19 @@ def test_ring_stacked_two_steps_bit_equal_to_plain(shape, nn, coast, dev):
 
 
 @pytest.mark.cuda
-def test_ring_launchers_refuse_nn_58(dev):
-    """NN = 58 is the first radius whose strip and integral image overflow
-    a block's 227 KB even single-buffered: B1, B4 and B5 raise and count no
-    launch (NN = 57 runs: test_ring_stacked_two_steps_bit_equal_to_plain)."""
+def test_ring_launchers_refuse_nn_225(dev):
+    """The kernels take every NN the large build was asked to (58 at the
+    latest, 160 at least); NN = 225, one past their widest radius, is the
+    first whose running sums would overflow a block's 227 KB even
+    single-buffered: B1, B4 and B5 raise, naming the limit, and count no
+    launch (NN = 224 runs: test_ring_stacked_two_steps_bit_equal_to_plain)."""
     def zeros(*shape):
         return torch.zeros(shape, device=dev)
 
-    h, w, nn, params = 8, 8, 58, Params()
+    large_from, max_nn = ring_limits()
+    assert large_from <= 58 and max_nn >= 160
+    h, w, nn, params = 8, 8, max_nn + 1, Params()
+    assert nn == 225
     pads = (zeros(h + 2 * nn, w + 2 * nn), zeros(h + 2 * nn, w + 2 * nn))
     counts = lambda: (ring_trigger_cuda_stacked.launches,  # noqa: E731
                       ring_trigger_cuda_padded.launches,
@@ -277,14 +291,14 @@ def test_ring_launchers_refuse_nn_58(dev):
     before = counts()
     scan = StackedScan(h, w, params, dev)
     bufs = scan.init_buffers(1, zeros(h, w), zeros(h, w))
-    with pytest.raises(RuntimeError, match="cudaError_t"):
+    with pytest.raises(ValueError, match=f"NN <= {nn - 1}"):
         ring_trigger_cuda_stacked(*pads, *(zeros(h, w) for _ in range(5)),
                                   False, False, params, nn, 0, *bufs,
                                   scan.ever)
-    with pytest.raises(RuntimeError, match="cudaError_t"):
+    with pytest.raises(ValueError, match=f"NN <= {nn - 1}"):
         ring_trigger_cuda_padded(*pads, *(zeros(h, w) for _ in range(5)),
                                  False, False, params, nn)
-    with pytest.raises(RuntimeError, match="cudaError_t"):
+    with pytest.raises(ValueError, match=f"NN <= {nn - 1}"):
         ring_thc_cuda_padded(*pads, zeros(h, w), nn)
     assert counts() == before
 
@@ -410,11 +424,11 @@ def test_launchers_reject_oversized_shared_memory(dev):
     with pytest.raises(RuntimeError, match="cudaError_t"):
         pass2_min_cuda(zeros(10 + 2 * k, 16), zeros(10, 2 * k + 1),
                        zeros(10, 2 * k + 1), k)
-    h, w, nn = 8, 8, 60                       # B1: 249220 bytes per block
+    h, w, nn = 8, 8, ring_limits()[1] + 1     # B1: past its widest radius
     params = Params()
     scan = StackedScan(h, w, params, dev)
     bufs = scan.init_buffers(1, zeros(h, w), zeros(h, w))
-    with pytest.raises(RuntimeError, match="cudaError_t"):
+    with pytest.raises(ValueError, match=f"NN <= {nn - 1}"):
         ring_trigger_cuda_stacked(
             zeros(h + 2 * nn, w + 2 * nn), zeros(h + 2 * nn, w + 2 * nn),
             zeros(h, w), zeros(h, w), zeros(h, w), zeros(h, w), zeros(h, w),
@@ -430,9 +444,10 @@ def test_launchers_reject_oversized_shared_memory(dev):
 
 @pytest.mark.cuda
 def test_new_launchers_reject_oversized_shared_memory(dev):
-    """B3 at a radius of 1000 cells and B4/B5 at NN = 60 need more shared
-    memory than a block may hold: each wrapper raises, counts no launch,
-    and the next good launch is not blamed."""
+    """B3 at a radius of 1000 cells needs more shared memory than a block
+    may hold, and B4/B5 at NN = 225 run past their widest radius: each
+    wrapper raises, counts no launch, and the next good launch is not
+    blamed."""
     def zeros(*shape):
         return torch.zeros(shape, device=dev)
 
@@ -445,12 +460,12 @@ def test_new_launchers_reject_oversized_shared_memory(dev):
         min_haversine_param_cuda(zeros(h + 2 * k, w + 2 * k),
                                  zeros(h, 2 * k + 1), zeros(h, 2 * k + 1),
                                  zeros(w, 2 * k + 1), k)
-    h, w, nn = 8, 8, 60                       # B4, B5: 249220 bytes
+    h, w, nn = 8, 8, ring_limits()[1] + 1     # B4, B5: past the limit
     pads = (zeros(h + 2 * nn, w + 2 * nn), zeros(h + 2 * nn, w + 2 * nn))
-    with pytest.raises(RuntimeError, match="cudaError_t"):
+    with pytest.raises(ValueError, match=f"NN <= {nn - 1}"):
         ring_trigger_cuda_padded(*pads, *(zeros(h, w) for _ in range(5)),
                                  False, False, Params(), nn)
-    with pytest.raises(RuntimeError, match="cudaError_t"):
+    with pytest.raises(ValueError, match=f"NN <= {nn - 1}"):
         ring_thc_cuda_padded(*pads, zeros(h, w), nn)
     assert counts() == before
     k = 2
@@ -581,27 +596,30 @@ def test_coupled_paths_match_plain(name, dev):
                                    atol=0)
 
 
-#: name -> (mesh shape, field shape): ragged shards (37 x 35 is no multiple
-#: of the kernel's 32 x 8 block), 1-wide mesh axes, one shard.
+#: name -> (mesh shape, field shape): ragged shards (37 x 35: a width no
+#: multiple of 4, so rows start at every offset modulo 16 bytes), 1-wide
+#: mesh axes, one shard, 64 shards (8 x 11).
 HALO_MESHES = {
     "2x4": ((2, 4), (74, 140)),
     "3x3": ((3, 3), (33, 99)),
     "1x7": ((1, 7), (30, 84)),
     "5x1": ((5, 1), (55, 40)),
     "1x1": ((1, 1), (37, 70)),
+    "8x8": ((8, 8), (64, 88)),
 }
+#: Every (lat_fill, exact_lon).
+HALO_FILLS = [("clamp", True), ("clamp", False), ("zero", False),
+              ("zero", True)]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", sorted(HALO_MESHES))
-@pytest.mark.parametrize("lat_fill,exact_lon", [("clamp", True),
-                                                ("clamp", False),
-                                                ("zero", False)])
+@pytest.mark.parametrize("lat_fill,exact_lon", HALO_FILLS)
 @pytest.mark.parametrize("channels", [1, 2])
 def test_halo_kernel_bit_equal_to_plain(name, lat_fill, exact_lon, channels,
                                         dev):
     """B6 against its plain version, bit for bit, one launch per exchange,
-    at 1-wide, uneven, one-sided and full-shard widths."""
+    at no, 1-wide, uneven, one-sided and full-shard widths."""
     (py, px), (nlat, nlon) = HALO_MESHES[name]
     mesh = make_mesh((py, px), dev)
     shape = (channels, nlat, nlon) if channels > 1 else (nlat, nlon)
@@ -609,7 +627,7 @@ def test_halo_kernel_bit_equal_to_plain(name, lat_fill, exact_lon, channels,
     local = split(torch.as_tensor(field.astype(np.float32), device=dev),
                   mesh)
     h, w = nlat // py, nlon // px
-    for hy, hx in ((1, 1), (3, 2), (0, 2), (2, 0),
+    for hy, hx in ((0, 0), (1, 1), (3, 2), (0, 2), (2, 0),
                    (h, w - 1 if exact_lon else w)):
         kw = dict(lat_fill=lat_fill, exact_lon=exact_lon)
         before = halo_exchange_cuda.launches
@@ -618,6 +636,39 @@ def test_halo_kernel_bit_equal_to_plain(name, lat_fill, exact_lon, channels,
         want = halo_exchange_plain(local, mesh, hy, hx, **kw)
         for g, r in zip(got, want):
             torch.testing.assert_close(g, r, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [0, 1, 6, 10, 17, 15, 19, 35, 40])
+@pytest.mark.parametrize("w", [44, 45])
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("lat_fill,exact_lon", HALO_FILLS)
+@pytest.mark.parametrize("channels", [1, 2])
+def test_halo_kernel_path_widths_bit_equal_to_plain(width, w, offset,
+                                                    lat_fill, exact_lon,
+                                                    channels, dev):
+    """B6 against its plain version, bit for bit, on 2 x 4 shards of 40 x w
+    at the decomposed run's widths — k, NN and NN + k + 1 at 0.25 deg (6,
+    10, 17) and 0.1 deg (15, 19, 35) — and at 0, 1 and h; w = 44 keeps the
+    source rows 16-byte aligned, 45 does not; ``offset`` 1 starts every
+    shard one float past a 16-byte boundary (shards that are views into
+    one buffer), so source and destination differ in alignment."""
+    mesh = make_mesh((2, 4), dev)
+    h = 40
+    shape = (channels, h, w) if channels > 1 else (h, w)
+    n = int(np.prod(shape))
+    rng = np.random.default_rng(width * 100 + w)
+    buf = torch.as_tensor(rng.standard_normal(offset + 8 * n).astype(
+        np.float32), device=dev)
+    local = [buf[offset + s * n: offset + (s + 1) * n].view(shape)
+             for s in range(8)]
+    kw = dict(lat_fill=lat_fill, exact_lon=exact_lon)
+    before = halo_exchange_cuda.launches
+    got = halo_exchange_cuda(local, mesh, width, width, **kw)
+    assert halo_exchange_cuda.launches == before + 1
+    for g, r in zip(got, halo_exchange_plain(local, mesh, width, width,
+                                             **kw)):
+        torch.testing.assert_close(g, r, rtol=0, atol=0)
 
 
 @pytest.mark.cuda

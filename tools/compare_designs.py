@@ -1,12 +1,15 @@
 #!/usr/bin/env python3
-"""Time the designs of kernels B1 and B2 side by side on one NVIDIA GPU.
+"""Time the designs of kernels B1, B2, B4, B5 and B6 side by side on one
+NVIDIA GPU.
 
     python3 tools/compare_designs.py [--against NAME=DIR ...] [--reps N]
+                                     [--only B1,B2,B4,B5,B6]
 
 Builds, with one ``nvcc`` per library, all started together:
 
 * ``this``: the port's kernels, ``seabreeze_param_tpu_torch/csrc/
-  {ring_trigger,pass2_min}.cu``;
+  {ring_trigger,pass2_min,halo_exchange}.cu`` (``ring_trigger.cu`` also
+  serves B4 and B5);
 * ``NAME`` for each ``--against NAME=DIR``: the same files of another
   checkout (e.g. ``parent=build/parent``, a ``git archive`` of the parent
   commit);
@@ -18,17 +21,34 @@ Builds, with one ``nvcc`` per library, all started together:
 * B1 ``variants``, ``prefetch``, ``tall`` and ``tall_prefetch``:
   ``tools/designs/ring_trigger_variants.cu`` with the port's design, the
   next tile's strip staged with ``cp.async`` during this tile's ring loop,
-  32 x 32 tiles of two cells per thread, and both.
+  32 x 32 tiles of two cells per thread, and both;
+* B1/B4/B5 ``large``: ``ring_trigger.cu`` with every NN on its large build
+  (``-DSBZ_RING_LARGE_FROM=1``), which the port takes from NN = 58;
+* B6 ``occupancy4`` and ``unroll2``: ``tools/designs/
+  halo_exchange_rows_variants.cu``, the port's design held to 64 registers
+  (four blocks per SM against two), and with two 16-byte units per lane in
+  flight instead of four;
+* B6 ``gather`` and ``gather_rows8``: ``tools/designs/
+  halo_exchange_gather.cu``, the first design (one thread per destination
+  float), and the same with eight rows per thread (an eighth of the
+  blocks, still one load in flight per thread).
 
-Then, at global 0.25 and 0.1 degrees on the inputs of ``chip_smoke.py``'s
-B1 and B2 phases, holds every build bit-equal to the plain version and
-times it with ``chip_smoke.device_ms`` in the order of the list and then
-reversed: with the L2 flushed by a write before each call (the smoke's
-timing), flushed by a read (no dirty lines to write back), and warm (the
-inputs left in L2 by the call before).  Prints ``ptxas`` lines, one line
-per build and size, and a JSON line ``{"designs": ...}`` of the device
-times in microseconds (flushed by a write, mean of the two passes; the
-others under ``read`` and ``warm``).  Imports nothing of JAX.
+Then holds every build bit-equal to the plain version and times it with
+``chip_smoke.device_ms`` in the order of the list and then reversed: with
+the L2 flushed by a write before each call (the smoke's timing), flushed by
+a read (no dirty lines to write back), and warm (the inputs left in L2 by
+the call before).  B1, B2, B4 and B5 on the inputs of ``chip_smoke.py``'s
+kernel phases at global 0.25 and 0.1 degrees; B1 also at 0.1 degree padded
+to NN = 40 and 57 (the second small build against the large one, which
+sets where the large build starts) and on ``chip_smoke.fine_world`` (NN =
+97); B6 on random 2 x 4 shards of both grids at the width of theta's
+exchange (NN), beside two yardsticks in the same passes: ``take``, the
+smoke's library call (``torch.take`` through an index map), and ``copy``, a
+``Tensor.copy_`` of as many bytes as the exchange writes.  Last, the host
+time of B6's wrapper and of its parts.  Prints ``ptxas`` lines, one line
+per build and size and a JSON line ``{"designs": ...}`` of the device times
+in microseconds (flushed by a write, mean of the two passes; the others
+under ``read`` and ``warm``).  Imports nothing of JAX.
 """
 from __future__ import annotations
 
@@ -61,10 +81,12 @@ def builds(against):
     """{kernel: {name: (source, extra flags)}}."""
     b2 = {"this": (CSRC / "pass2_min.cu", ())}
     b1 = {"this": (CSRC / "ring_trigger.cu", ())}
+    b6 = {"this": (CSRC / "halo_exchange.cu", ())}
     for name, root in against.items():
         src = Path(root) / "seabreeze_param_tpu_torch" / "csrc"
         b2[name] = (src / "pass2_min.cu", ())
         b1[name] = (src / "ring_trigger.cu", ())
+        b6[name] = (src / "halo_exchange.cu", ())
     win = DESIGNS / "pass2_min_window.cu"
     b2["window"] = (win, ())
     b2["window16"] = (win, ("-DSBZ_WINDOW_R=16", "-DSBZ_WINDOW_TY=4"))
@@ -75,7 +97,14 @@ def builds(against):
     b1["prefetch"] = (var, ("-DSBZ_RING_PREFETCH=1",))
     b1["tall"] = (var, ("-DSBZ_RING_CPT=2",))
     b1["tall_prefetch"] = (var, ("-DSBZ_RING_CPT=2", "-DSBZ_RING_PREFETCH=1"))
-    return {"B2": b2, "B1": b1}
+    b1["large"] = (CSRC / "ring_trigger.cu", ("-DSBZ_RING_LARGE_FROM=1",))
+    rows = DESIGNS / "halo_exchange_rows_variants.cu"
+    b6["occupancy4"] = (rows, ("-DSBZ_HALO_MIN_BLOCKS=4",))
+    b6["unroll2"] = (rows, ("-DSBZ_HALO_UNROLL=2",))
+    gather = DESIGNS / "halo_exchange_gather.cu"
+    b6["gather"] = (gather, ())
+    b6["gather_rows8"] = (gather, ("-DSBZ_HALO_ROWS=8",))
+    return {"B2": b2, "B1": b1, "B6": b6}
 
 
 def build_all(table):
@@ -153,35 +182,61 @@ def b2_case(name):
     return check, make_call
 
 
-def b1_case(name):
-    """(check, make_call) for B1 at ``name``: one step of the main world
-    (tt = 15, a wind refresh), every tile holding a coastal cell in the
-    ever-coastal set at the build's tile."""
+def ring_inputs(name, nn=None):
+    """One step of a world (tt = 15, a wind refresh) on the card: the ring
+    kernels' inputs padded at ``nn`` (default: the pipeline's NN) and the
+    state.  ``name``: one of ``bench.GRIDS``, or ``fine`` for
+    ``chip_smoke.fine_world``."""
     import torch
     from bench import GRIDS, make_world
     from seabreeze_param_tpu_torch.core.params import Params
     from seabreeze_param_tpu_torch.models.pipeline import TriggerPipeline
-    from seabreeze_param_tpu_torch.ops.cuda.ring_kernel import StackedScan
-    from seabreeze_param_tpu_torch.ops.trigger import (cadence, prepare_step,
-                                                       trigger_cells)
-    grid, _, _ = cs.world_grid(name)
-    nlat, nlon = GRIDS[name]
-    lsm, z, std, pres, theta, u, v, ci = make_world(nlat, nlon, 4, 3, seed=3)
+    from seabreeze_param_tpu_torch.ops.trigger import cadence, prepare_step
+    if name == "fine":
+        grid, world = cs.fine_world()
+        nlat, nlon = grid.shape
+    else:
+        grid, _, _ = cs.world_grid(name)
+        nlat, nlon = GRIDS[name]
+        world = make_world(nlat, nlon, 4, 3, seed=3)
+    lsm, z, std, pres, theta, u, v, ci = world
     dev = torch.device("cuda")
     pipe = TriggerPipeline(grid, device=dev)
-    params, nn = Params(), pipe.nn_max
+    params = Params()
+    nn = pipe.nn_max if nn is None else nn
     D = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
     cd = pipe.distance_field(D(lsm), D(ci[2]))
     _, ws_new, wd_new, t0_pad, cd_pad = prepare_step(
         D(theta[2]), D(u[2]), D(v[2]), cd, D(z), D(std), D(pres), params, nn)
     ws0 = torch.full((nlat, nlon), 5.0, device=dev)
     wd0 = torch.full((nlat, nlon), 90.0, device=dev)
-    is_first, upd = cadence(15, params)
-    ref = trigger_cells(cd, ws_new, wd_new, ws0, wd0, t0_pad, cd_pad,
-                        is_first, upd, params, nn)
-    bufs = [torch.empty((1, nlat, nlon), device=dev) for _ in range(3)]
-    state = [ws0.clone(), wd0.clone()]
+    return dict(nlat=nlat, nlon=nlon, nn=nn, params=params, cd=cd,
+                ws_new=ws_new, wd_new=wd_new, t0_pad=t0_pad, cd_pad=cd_pad,
+                ws0=ws0, wd0=wd0, flags=cadence(15, params))
+
+
+def _scalars(params):
     f32 = np.float32
+    return tuple(float(f32(x)) for x in (
+        params.maxdist, params.thresh_wind, params.thresh_winddir,
+        params.thresh_windch, params.thresh_thc))
+
+
+def b1_case(name, nn=None):
+    """(check, make_call) for B1 at ``name`` (padded at ``nn``): every tile
+    holding a coastal cell in the ever-coastal set at the build's tile."""
+    import torch
+    from seabreeze_param_tpu_torch.ops.cuda.ring_kernel import StackedScan
+    from seabreeze_param_tpu_torch.ops.trigger import trigger_cells
+    x = ring_inputs(name, nn)
+    nlat, nlon, nn, params, cd = (x[k] for k in ("nlat", "nlon", "nn",
+                                                 "params", "cd"))
+    ws0, wd0 = x["ws0"], x["wd0"]
+    is_first, upd = x["flags"]
+    ref = trigger_cells(cd, x["ws_new"], x["wd_new"], ws0, wd0, x["t0_pad"],
+                        x["cd_pad"], is_first, upd, params, nn)
+    bufs = [torch.empty((1, nlat, nlon), device=cd.device) for _ in range(3)]
+    state = [ws0.clone(), wd0.clone()]
 
     def tile_of(lib):
         if not hasattr(lib, "sbz_ring_tile"):
@@ -195,20 +250,19 @@ def b1_case(name):
 
         def call():
             err = lib.sbz_ring_trigger_stacked(
-                t0_pad.data_ptr(), cd_pad.data_ptr(), cd.data_ptr(),
-                ws_new.data_ptr(), wd_new.data_ptr(), state[0].data_ptr(),
-                state[1].data_ptr(), ever.data_ptr(), bufs[0].data_ptr(),
-                bufs[1].data_ptr(), bufs[2].data_ptr(), nlat, nlon, nn, 0,
-                int(is_first), int(upd), 0, nlat,
-                int(params.skip_last_lat_row), *(float(f32(x)) for x in (
-                    params.maxdist, params.thresh_wind, params.thresh_winddir,
-                    params.thresh_windch, params.thresh_thc)), stream())
+                x["t0_pad"].data_ptr(), x["cd_pad"].data_ptr(), cd.data_ptr(),
+                x["ws_new"].data_ptr(), x["wd_new"].data_ptr(),
+                state[0].data_ptr(), state[1].data_ptr(), ever.data_ptr(),
+                bufs[0].data_ptr(), bufs[1].data_ptr(), bufs[2].data_ptr(),
+                nlat, nlon, nn, 0, int(is_first), int(upd), 0, nlat,
+                int(params.skip_last_lat_row), *_scalars(params), stream())
             assert err == 0, f"sbz_ring_trigger_stacked: cudaError_t {err}"
         return call
 
     def check(lib):
         # the stacks pre-filled: what a tile never visited keeps
-        pre = StackedScan(nlat, nlon, params, dev).init_buffers(1, ws0, wd0)
+        pre = StackedScan(nlat, nlon, params, cd.device).init_buffers(1, ws0,
+                                                                      wd0)
         for b, p in zip(bufs, pre):
             b.copy_(p)
         state[0].copy_(ws0)
@@ -219,12 +273,205 @@ def b1_case(name):
     return check, make_call
 
 
+def b4_case(name):
+    """(check, make_call) for B4 (every tile, one step) at ``name``."""
+    import torch
+    from seabreeze_param_tpu_torch.ops.trigger import trigger_cells
+    x = ring_inputs(name)
+    nlat, nlon, nn, params, cd = (x[k] for k in ("nlat", "nlon", "nn",
+                                                 "params", "cd"))
+    is_first, upd = x["flags"]
+    ins = [x[k] for k in ("t0_pad", "cd_pad")] + [cd] + [
+        x[k] for k in ("ws_new", "wd_new", "ws0", "wd0")]
+    ref = trigger_cells(cd, x["ws_new"], x["wd_new"], x["ws0"], x["wd0"],
+                        x["t0_pad"], x["cd_pad"], is_first, upd, params, nn)
+    outs = [torch.empty((nlat, nlon), device=cd.device) for _ in range(3)]
+
+    def make_call(lib):
+        def call():
+            err = lib.sbz_ring_trigger_padded(
+                *(t.data_ptr() for t in ins + outs), nlat, nlon, nn,
+                int(is_first), int(upd), 0, nlat,
+                int(params.skip_last_lat_row), *_scalars(params), stream())
+            assert err == 0, f"sbz_ring_trigger_padded: cudaError_t {err}"
+        return call
+
+    def check(lib):
+        for o in outs:
+            o.fill_(float("nan"))
+        make_call(lib)()
+        return all(torch.equal(o, r) for o, r in zip(outs, (ref[0], ref[3],
+                                                            ref[4])))
+    return check, make_call
+
+
+def b5_case(name):
+    """(check, make_call) for B5 (the ring search alone) at ``name``."""
+    import torch
+    from seabreeze_param_tpu_torch.ops.ring_search import (
+        ring_quantities, ring_thc_from_padded)
+    x = ring_inputs(name)
+    nlat, nlon, nn, params, cd = (x[k] for k in ("nlat", "nlon", "nn",
+                                                 "params", "cd"))
+    maxdist = float(np.float32(params.maxdist))
+    ref = ring_thc_from_padded(ring_quantities(x["t0_pad"], x["cd_pad"]),
+                               torch.where(cd >= 0, 1.0, -1.0), nn,
+                               coastal=cd.abs() <= maxdist)[0]
+    out = torch.empty((nlat, nlon), device=cd.device)
+
+    def make_call(lib):
+        def call():
+            err = lib.sbz_ring_thc_padded(
+                x["t0_pad"].data_ptr(), x["cd_pad"].data_ptr(), cd.data_ptr(),
+                out.data_ptr(), nlat, nlon, nn, maxdist, stream())
+            assert err == 0, f"sbz_ring_thc_padded: cudaError_t {err}"
+        return call
+
+    def check(lib):
+        out.fill_(float("nan"))
+        make_call(lib)()
+        return bool(torch.equal(out, ref))
+    return check, make_call
+
+
+def b6_inputs(name):
+    """Random 2 x 4 shards of grid ``name`` (as ``chip_smoke.phase_halo``)
+    and the width of theta's exchange, NN."""
+    import torch
+    from seabreeze_param_tpu_torch.models.pipeline import TriggerPipeline
+    grid, _, _ = cs.world_grid(name)
+    dev = torch.device("cuda")
+    mesh, (h, w) = cs.shard_mesh_and_shape(name)
+    gen = torch.Generator(device=dev).manual_seed(4)
+    local = [torch.randn((h, w), generator=gen, device=dev)
+             for _ in range(mesh.size)]
+    return mesh, local, TriggerPipeline(grid, device=dev).nn_max
+
+
+def b6_case(name):
+    """(check, make_call, yardsticks) for B6 at ``name``: theta's exchange
+    (1 channel, NN wide, clamp fill, the quirky seam), launched through the
+    C interface with the pointer arrays made once; the yardsticks are
+    ``take`` and ``copy`` (module docstring)."""
+    import torch
+    from seabreeze_param_tpu_torch.parallel.halo import halo_exchange_plain
+    mesh, local, nn = b6_inputs(name)
+    kw = dict(lat_fill="clamp", exact_lon=True)
+    ref = halo_exchange_plain(local, mesh, nn, nn, **kw)
+    out = torch.empty((mesh.size,) + tuple(ref[0].shape), device=ref[0].device)
+    ptrs = ctypes.c_void_p * mesh.size
+    src = ptrs(*(x.data_ptr() for x in local))
+    dst = ptrs(*(o.data_ptr() for o in out))
+    h, w = local[0].shape
+
+    def make_call(lib):
+        def call():
+            err = lib.sbz_halo_exchange(src, dst, mesh.py, mesh.px, 1, h, w,
+                                        nn, nn, 0, 1, stream())
+            assert err == 0, f"sbz_halo_exchange: cudaError_t {err}"
+        return call
+
+    def check(lib):
+        out.fill_(float("nan"))
+        make_call(lib)()
+        return all(torch.equal(o, r) for o, r in zip(out, ref))
+
+    take = cs.halo_take(local, mesh, nn, kw)
+    assert torch.equal(take(), torch.stack(ref))
+    stacked = torch.stack(local)
+    flat_src = torch.empty(out.numel(), device=out.device)
+    flat_src[:stacked.numel()] = stacked.reshape(-1)
+    flat_dst = torch.empty_like(flat_src)
+    yard = {"take": take, "copy": lambda: flat_dst.copy_(flat_src)}
+    return check, make_call, yard
+
+
+def b6_host_parts(reps=200):
+    """Host microseconds per call of B6's wrapper and of its parts at the
+    0.25-degree shards: validation, the outputs' allocation (one tensor, and
+    one per shard as the wrapper did before), the pointer arrays, and the
+    bare C launch."""
+    import time
+    import torch
+    from seabreeze_param_tpu_torch.ops.cuda import _build
+    from seabreeze_param_tpu_torch.ops.cuda.halo_kernel import (
+        halo_exchange_cuda)
+    from seabreeze_param_tpu_torch.parallel.halo import check_exchange
+    mesh, local, nn = b6_inputs("global025")
+    h, w = local[0].shape
+    shape = (h + 2 * nn, w + 2 * nn)
+    lib = _build.load()
+    out = [torch.empty(shape, device=local[0].device)
+           for _ in range(mesh.size)]
+    ptrs = ctypes.c_void_p * mesh.size
+    src = ptrs(*(x.data_ptr() for x in local))
+    dst = ptrs(*(o.data_ptr() for o in out))
+    s = stream()
+
+    def validate():
+        check_exchange(local, mesh, nn, nn, "clamp")
+        for i, x in enumerate(local):
+            _build.require(x, f"shard {i}", (h, w), x.device)
+
+    def device_guard():
+        with torch.cuda.device(local[0].device):
+            pass
+
+    parts = {
+        "wrapper": lambda: halo_exchange_cuda(local, mesh, nn, nn),
+        "validate": validate,
+        "alloc_one": lambda: torch.empty((mesh.size,) + shape,
+                                         device=local[0].device).unbind(0),
+        "alloc_per_shard": lambda: [torch.empty(shape, device=local[0].device)
+                                    for _ in range(mesh.size)],
+        "pointer_arrays": lambda: (ptrs(*(x.data_ptr() for x in local)),
+                                   ptrs(*(o.data_ptr() for o in out))),
+        "device_guard": device_guard,
+        "current_stream": lambda: torch.cuda.current_stream().cuda_stream,
+        "c_launch": lambda: lib.sbz_halo_exchange(src, dst, mesh.py, mesh.px,
+                                                  1, h, w, nn, nn, 0, 1, s),
+    }
+    res = {}
+    for name, fn in parts.items():
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        res[name] = (time.perf_counter() - t0) / reps * 1e6
+        torch.cuda.synchronize()
+    return res
+
+
+def time_round(names, libs_of, check, make_call, reps, yard=None):
+    """Every build of ``names`` (and each yardstick) held bit-equal, then
+    timed in list order and reversed, in each L2 mode; returns
+    {(name, mode): [us, us]}."""
+    names = list(names) + list(yard or {})
+    times = {(n, m): [] for n in names for m in MODES}
+    for name in names + names[::-1]:
+        if yard and name in yard:
+            call = yard[name]
+        else:
+            lib = libs_of(name)
+            if not check(lib):
+                raise AssertionError(f"{name}: not bit-equal to the plain "
+                                     "version")
+            call = make_call(lib)
+        for m, flush in MODES.items():
+            times[name, m].append(cs.device_ms(call, reps=reps, flush=flush)
+                                  * 1e3)
+    return times
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--against", action="append", default=[],
                     metavar="NAME=DIR",
                     help="another checkout whose csrc/ is also built")
     ap.add_argument("--reps", type=int, default=30)
+    ap.add_argument("--only", default="B1,B2,B4,B5,B6",
+                    help="comma-separated kernels to time")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -234,7 +481,12 @@ def main():
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
     print(smi.splitlines()[0], flush=True)
-    table = builds(dict(a.split("=", 1) for a in args.against))
+    only = set(args.only.split(","))
+    against = dict(a.split("=", 1) for a in args.against)
+    table = builds(against)
+    need = {"B1": "B1", "B4": "B1", "B5": "B1", "B2": "B2", "B6": "B6"}
+    table = {k: v for k, v in table.items()
+             if any(need[o] == k for o in only)}
     libs = build_all(table)
     # the timing's floor: one launch of a one-element kernel
     one = torch.zeros(1, device="cuda")
@@ -244,30 +496,49 @@ def main():
           f"{floor['write']:.2f} us, by a read {floor['read']:.2f}, warm "
           f"{floor['warm']:.2f}", flush=True)
     result = {"floor": floor}
-    for kern, case in (("B2", b2_case), ("B1", b1_case)):
-        for size in ("global025", "global010"):
-            check, make_call = case(size)
-            names = list(table[kern])
-            times = {(n, m): [] for n in names for m in MODES}
-            for name in names + names[::-1]:
-                lib = libs[kern, name]
-                if not check(lib):
-                    raise AssertionError(f"{kern} {name} {size}: not "
-                                         "bit-equal to the plain version")
-                for m, flush in MODES.items():
-                    times[name, m].append(cs.device_ms(
-                        make_call(lib), reps=args.reps, flush=flush) * 1e3)
-            mean = {k: sum(t) / len(t) for k, t in times.items()}
-            for name in names:
-                t = times[name, "write"]
-                print(f"# {kern} {size} {name:14s} bit-equal; device "
-                      f"{t[0]:.2f} / {t[1]:.2f} us (forward / reversed), "
-                      f"L2 flushed by a read {mean[name, 'read']:.2f}, "
-                      f"warm {mean[name, 'warm']:.2f}", flush=True)
-            out = result.setdefault(kern, {})
-            out[size] = {n: mean[n, "write"] for n in names}
-            for m in ("read", "warm"):
-                out.setdefault(m, {})[size] = {n: mean[n, m] for n in names}
+    mine = ["this", *against]
+    ring = mine + ["large"]
+    # (kernel, library group, size, case, builds: None for every build of
+    # the group that exports the kernel's launcher)
+    plan = []
+    for size in ("global025", "global010"):
+        plan += [("B2", "B2", size, lambda z=size: b2_case(z), None),
+                 ("B1", "B1", size, lambda z=size: b1_case(z), None),
+                 ("B4", "B1", size, lambda z=size: b4_case(z), ring),
+                 ("B5", "B1", size, lambda z=size: b5_case(z), ring),
+                 ("B6", "B6", size, lambda z=size: b6_case(z), None)]
+    plan += [("B1", "B1", f"global010@{nn}",
+              lambda nn=nn: b1_case("global010", nn), ring)
+             for nn in (40, 57)]
+    plan += [("B1", "B1", "fine", lambda: b1_case("fine"), ["this"])]
+    for kern, group, size, case, names in plan:
+        if kern not in only:
+            continue
+        made = case()
+        check, make_call = made[:2]
+        yard = made[2] if len(made) > 2 else None
+        names = [n for n in (names or table[group])
+                 if n in table[group]]
+        times = time_round(names, lambda n, g=group: libs[g, n], check,
+                           make_call, args.reps, yard)
+        mean = {k: sum(t) / len(t) for k, t in times.items()}
+        for name in names + list(yard or {}):
+            t = times[name, "write"]
+            tag = "yardstick" if yard and name in yard else "bit-equal"
+            print(f"# {kern} {size} {name:14s} {tag}; device "
+                  f"{t[0]:.2f} / {t[1]:.2f} us (forward / reversed), "
+                  f"L2 flushed by a read {mean[name, 'read']:.2f}, "
+                  f"warm {mean[name, 'warm']:.2f}", flush=True)
+        out = result.setdefault(kern, {})
+        out[size] = {n: mean[n, "write"] for n in names + list(yard or {})}
+        for m in ("read", "warm"):
+            out.setdefault(m, {})[size] = {
+                n: mean[n, m] for n in names + list(yard or {})}
+    if "B6" in only:
+        host = b6_host_parts()
+        print("# B6 wrapper host us per call at global025: " + ", ".join(
+            f"{k} {v:.1f}" for k, v in host.items()), flush=True)
+        result["B6_host_us"] = host
     print(json.dumps({"designs": result, "device": smi.splitlines()[0],
                       "unit": "us, mean of the two passes"}))
     return 0

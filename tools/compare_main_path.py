@@ -1,19 +1,22 @@
 #!/usr/bin/env python3
-"""The main path of this checkout against another's, in pairs of fresh
-processes on one NVIDIA GPU.
+"""The main path (or the decomposed run) of this checkout against
+another's, in pairs of fresh processes on one NVIDIA GPU.
 
     python3 tools/compare_main_path.py --against DIR [--pairs N]
+                                       [--phase main|sharded]
 
 Each run is one process that imports the package of one checkout (this
 one, or ``DIR``, e.g. a ``git archive`` of the parent commit) and drives
-``chip_smoke.phase_main`` of this checkout: ``diag`` at global 0.25 deg,
-32 steps with moving sea ice (kernel path and plain path, each after a
-warm-up call), and ``TriggerPipeline.run`` with the inputs resident on
-the card.  The harness is the same on both sides; only the package
-differs.  Runs alternate in pairs (this first in even pairs, ``DIR`` first
-in odd ones).  Prints one line per run and a JSON line ``{"main_path":
-...}`` with each side's runs, medians and quartile spread, in ms/step.
-Imports nothing of JAX.
+one phase of this checkout's ``chip_smoke.py``: ``phase_main`` (``diag``
+at global 0.25 deg, 32 steps with moving sea ice, kernel path and plain
+path, each after a warm-up call, and ``TriggerPipeline.run`` with the
+inputs resident on the card) or ``phase_sharded`` (``ShardedPipeline.run``
+on a 2 x 4 mesh of the card, 16 steps of the same world: overlapped,
+basic, plain, and the single-device run).  The harness is the same on
+both sides; only the package differs.  Runs alternate in pairs (this first
+in even pairs, ``DIR`` first in odd ones).  Prints one line per run and a
+JSON line ``{"main_path": ...}`` with each side's runs, medians and
+quartile spread, in ms/step.  Imports nothing of JAX.
 """
 from __future__ import annotations
 
@@ -27,8 +30,17 @@ from pathlib import Path
 import numpy as np
 
 ROOT = Path(__file__).resolve().parents[1]
-KEYS = ("ms_per_step", "plain_ms_per_step", "resident_kernel",
-        "resident_plain")
+#: Per phase, the numbers kept: name -> path into the phase's output.
+KEYS = {
+    "main": {"ms_per_step": ("ms_per_step",),
+             "plain_ms_per_step": ("plain_ms_per_step",),
+             "resident_kernel": ("resident_ms_per_step", "kernel"),
+             "resident_plain": ("resident_ms_per_step", "plain")},
+    "sharded": {"overlap": ("ms_per_step", "overlap"),
+                "basic": ("ms_per_step", "basic"),
+                "plain": ("ms_per_step", "plain"),
+                "single": ("ms_per_step", "single")},
+}
 
 RUN = """
 import importlib.util, json, sys
@@ -37,30 +49,33 @@ spec = importlib.util.spec_from_file_location("smoke", {smoke!r})
 cs = importlib.util.module_from_spec(spec)
 spec.loader.exec_module(cs)
 out = {{}}
-cs.phase_main(out)
-print(json.dumps(dict(
-    ms_per_step=out["ms_per_step"],
-    plain_ms_per_step=out["plain_ms_per_step"],
-    resident_kernel=out["resident_ms_per_step"]["kernel"],
-    resident_plain=out["resident_ms_per_step"]["plain"],
-    launches=out["launches"])))
+cs.phase_{phase}(out)
+print(json.dumps(out))
 """
 
 
-def run(side: Path):
-    """One process on ``side``'s package; its main-path numbers."""
-    code = RUN.format(side=str(side), smoke=str(ROOT / "chip_smoke.py"))
+def run(side: Path, phase: str):
+    """One process on ``side``'s package; the phase's numbers."""
+    code = RUN.format(side=str(side), smoke=str(ROOT / "chip_smoke.py"),
+                      phase=phase)
     p = subprocess.run([sys.executable, "-c", code], cwd=side,
                        capture_output=True, text=True, timeout=600)
     if p.returncode:
         raise RuntimeError(f"{side}: rc {p.returncode}\n{p.stdout[-2000:]}"
                            f"\n{p.stderr[-4000:]}")
-    return json.loads(p.stdout.strip().splitlines()[-1])
+    out = json.loads(p.stdout.strip().splitlines()[-1])
+    res = {"launches": out["launches"]}
+    for key, path in KEYS[phase].items():
+        v = out
+        for k in path:
+            v = v[k]
+        res[key] = v
+    return res
 
 
-def summary(runs):
+def summary(runs, phase):
     out = {}
-    for key in KEYS:
+    for key in KEYS[phase]:
         v = np.array([r[key] for r in runs])
         q1, med, q3 = np.percentile(v, [25, 50, 75])
         out[key] = dict(runs=v.tolist(), median=float(med),
@@ -73,21 +88,21 @@ def main():
     ap.add_argument("--against", required=True,
                     help="the other checkout (e.g. build/parent)")
     ap.add_argument("--pairs", type=int, default=10)
+    ap.add_argument("--phase", choices=sorted(KEYS), default="main")
     args = ap.parse_args()
     sides = {"this": ROOT, "against": Path(args.against).resolve()}
     runs = {name: [] for name in sides}
     for i in range(args.pairs):
         order = ("this", "against") if i % 2 == 0 else ("against", "this")
         for name in order:
-            r = run(sides[name])
+            r = run(sides[name], args.phase)
             runs[name].append(r)
-            print(f"# pair {i} {name:8s} diag {r['ms_per_step']:.3f} "
-                  f"(plain {r['plain_ms_per_step']:.3f}) ms/step, resident "
-                  f"{r['resident_kernel']:.3f} (plain "
-                  f"{r['resident_plain']:.3f}); launches {r['launches']}",
-                  flush=True)
-    print(json.dumps({"main_path": {name: summary(r)
+            print(f"# pair {i} {name:8s} {args.phase}, ms/step: " + ", ".join(
+                f"{k} {r[k]:.3f}" for k in KEYS[args.phase])
+                + f"; launches {r['launches']}", flush=True)
+    print(json.dumps({"main_path": {name: summary(r, args.phase)
                                     for name, r in runs.items()},
+                      "phase": args.phase,
                       "against": str(sides["against"])}))
     return 0
 
