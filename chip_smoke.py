@@ -66,6 +66,9 @@ DRIVER_DAYS, DRIVER_STEPS = 3, 4
 #: The fine regional world: FINE_N x FINE_N cells FINE_SPACING degrees
 #: apart from 55 N southward, FINE_STEPS steps on 4 levels.
 FINE_N, FINE_SPACING, FINE_STEPS = 1024, 0.015, 8
+#: The 1 km world: FINE_N x FINE_N cells KM_SPACING degrees apart from 54 N
+#: southward, KM_STEPS steps.
+KM_SPACING, KM_STEPS = 0.009, 4
 
 
 def log(msg):
@@ -555,19 +558,32 @@ def phase_main(out):
                resident_ms_per_step=resident)
 
 
-@functools.cache
-def fine_world():
-    """A kilometre-scale regional world: ``(grid, (lsm, z, std, pres, theta,
-    u, v, ci))``, 1024 x 1024 cells 0.015 deg apart (about 1.5 km, the
-    spacing of convection-permitting regional models), 55 to 39.655 N, 4
-    levels, 8 steps of ``bench.make_world`` fields.  k = 93 and NN ~97:
-    the ring kernels' large build.  Built once."""
+def regional_world(spacing, lat0, steps):
+    """A kilometre-scale regional world: ``(grid, (lsm, z, std, pres,
+    theta, u, v, ci))``, FINE_N x FINE_N cells ``spacing`` degrees apart
+    from ``lat0`` southward, 4 levels, ``steps`` steps of
+    ``bench.make_world`` fields."""
     from bench import make_world
     from seabreeze_param_tpu_torch.core.grid import Grid
-    n, d = FINE_N, FINE_SPACING
-    grid = Grid.regular(n, n, lat0=55.0, lat1=55.0 - (n - 1) * d, lon0=0.0,
-                        lon1=n * d)
-    return grid, make_world(n, n, 4, FINE_STEPS, seed=3)
+    n = FINE_N
+    grid = Grid.regular(n, n, lat0=lat0, lat1=lat0 - (n - 1) * spacing,
+                        lon0=0.0, lon1=n * spacing)
+    return grid, make_world(n, n, 4, steps, seed=3)
+
+
+@functools.cache
+def fine_world():
+    """1024 x 1024 cells 0.015 deg apart (about 1.5 km, the spacing of
+    convection-permitting regional models), 55 to 39.655 N, 8 steps.  k =
+    93, NN ~97 (the probe: 208): the ring kernels' large build."""
+    return regional_world(FINE_SPACING, 55.0, FINE_STEPS)
+
+
+@functools.cache
+def km_world():
+    """1024 x 1024 cells 0.009 deg apart (1 km), 54 to 44.793 N, 4 steps.
+    k = 155; the probe takes NN to 243."""
+    return regional_world(KM_SPACING, 54.0, KM_STEPS)
 
 
 def diag_nn(grid):
@@ -579,29 +595,14 @@ def diag_nn(grid):
                if k[:2] == key and k[-1] == "ring_nn")
 
 
-def phase_fine(out):
-    """The fine regional world (:func:`fine_world`), whose ring radius takes
-    the large build of B1, B4 and B5: ``diag`` for 8 steps, kernel path
-    against plain (final ws/wd bit-equal); the coupled step
-    (``prepare_mask`` + ``physics``, B2 + B4) over the same steps against
-    plain; B1, B4 and B5 alone on one step, bit for bit, B1 timed."""
+def regional_diag(world, what, least_nn):
+    """``diag`` over a regional world (:func:`regional_world`), kernel path
+    against plain (final ws/wd bit-equal), B1 launched once a step and B2
+    once more for the probe, at an NN of at least ``least_nn``."""
     import torch
     from seabreeze_param_tpu_torch.api import diag
-    from seabreeze_param_tpu_torch.core.params import Params
-    from seabreeze_param_tpu_torch.core.state import TriggerState
-    from seabreeze_param_tpu_torch.coupling import CoupledTrigger
-    from seabreeze_param_tpu_torch.models.pipeline import TriggerPipeline
-    from seabreeze_param_tpu_torch.ops.cuda.ring_kernel import (
-        StackedScan, ring_limits, ring_thc_cuda_padded,
-        ring_trigger_cuda_padded, ring_trigger_cuda_stacked)
-    from seabreeze_param_tpu_torch.ops.ring_search import (
-        ring_quantities, ring_thc_from_padded)
-    from seabreeze_param_tpu_torch.ops.trigger import (cadence, prepare_step,
-                                                       trigger_cells)
-
-    grid, (lsm, z, std, pres, theta, u, v, ci) = fine_world()
+    grid, (lsm, z, std, pres, theta, u, v, ci) = world
     T, nlat, nlon = theta.shape
-    dev = torch.device("cuda")
     args = (1, lsm, z, std, grid.lon, grid.lat, pres, u, v, theta, ci)
 
     def run(**kw):
@@ -617,24 +618,132 @@ def phase_fine(out):
     launches = {n: c for n, c in read_launches().items() if c}
     want = {"ring_trigger_stacked": T, "pass2_min": T + 1}  # + the probe
     if launches != want:
-        raise AssertionError(f"fine diag launches {launches}, want {want}")
+        raise AssertionError(f"{what} diag launches {launches}, want {want}")
     nn = diag_nn(grid)
-    large_from = ring_limits()[0]
-    if nn < large_from:
-        raise AssertionError(f"fine diag ran at NN = {nn}: not the large "
-                             f"build")
+    if nn < least_nn:
+        raise AssertionError(f"{what} diag ran at NN = {nn} < {least_nn}")
     plain, pms = run(use_kernels=False)
     if kern[0] != plain[0] or kern[0] != 1 + T:
-        raise AssertionError("fine diag: tt differs")
-    worst = check_fields(kern[5], plain[5], "fine diag per-step outputs")
+        raise AssertionError(f"{what} diag: tt differs")
+    worst = check_fields(kern[5], plain[5], f"{what} diag per-step outputs")
     check_fields(dict(thc=kern[2], windspeed=kern[3], winddir=kern[4]),
                  dict(thc=plain[2], windspeed=plain[3], winddir=plain[4]),
-                 "fine diag final state", bit_state=("windspeed", "winddir"))
+                 f"{what} diag final state",
+                 bit_state=("windspeed", "winddir"))
     sb = kern[1]
     if sb.shape != (T, nlat, nlon) or not np.isfinite(sb).all():
-        raise AssertionError("fine diag: sb_con shape or finiteness")
-    miss = float((sb == MISSING).mean())
-    trig = int(((sb != MISSING) & (sb != 0)).sum())
+        raise AssertionError(f"{what} diag: sb_con shape or finiteness")
+    return dict(launches=launches, nn=nn, T=T, ms_per_step=kms,
+                plain_ms_per_step=pms, max_abs_err=worst,
+                missing=float((sb == MISSING).mean()),
+                triggers=int(((sb != MISSING) & (sb != 0)).sum()))
+
+
+def ring_alone(world, nn, what, *, time_b1=True, time_b4=False):
+    """B1, B4 and B5 alone on step 2's inputs of a regional world padded at
+    ``nn``, each bit-equal to its plain version; B1 (and, with ``time_b4``,
+    B4) timed.  Returns {"b1": ..., "b4": ...} of the timed kernels and the
+    coastal cells' latch radii."""
+    import torch
+    from seabreeze_param_tpu_torch.core.params import Params
+    from seabreeze_param_tpu_torch.models.pipeline import TriggerPipeline
+    from seabreeze_param_tpu_torch.ops.cuda.ring_kernel import (
+        StackedScan, ring_thc_cuda_padded, ring_trigger_cuda_padded,
+        ring_trigger_cuda_stacked)
+    from seabreeze_param_tpu_torch.ops.ring_search import (
+        ring_quantities, ring_thc_from_padded)
+    from seabreeze_param_tpu_torch.ops.trigger import (cadence, prepare_step,
+                                                       trigger_cells)
+    grid, (lsm, z, std, pres, theta, u, v, ci) = world
+    nlat, nlon = grid.shape
+    dev = torch.device("cuda")
+    D = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
+    params = Params()
+    pipe = TriggerPipeline(grid, device=dev)
+    cd = pipe.distance_field(D(lsm), D(ci[2]))
+    _, ws_new, wd_new, t0_pad, cd_pad = prepare_step(
+        D(theta[2]), D(u[2]), D(v[2]), cd, D(z), D(std), D(pres), params, nn)
+    rng = np.random.default_rng(1)
+    ws0 = D((5 + rng.random((nlat, nlon))).astype(np.float32))
+    wd0 = D((360 * rng.random((nlat, nlon)) - 180).astype(np.float32))
+    flags = cadence(15, params)
+    ref = trigger_cells(cd, ws_new, wd_new, ws0, wd0, t0_pad, cd_pad, *flags,
+                        params, nn)
+    scan = StackedScan(nlat, nlon, params, dev)
+    bufs = scan.init_buffers(1, ws0, wd0)
+    ever = scan.add_coastal(cd)
+    ws_s, wd_s = ws0.clone(), wd0.clone()
+
+    def b1():
+        ring_trigger_cuda_stacked(t0_pad, cd_pad, cd, ws_new, wd_new, ws_s,
+                                  wd_s, *flags, params, nn, 0, *bufs, ever)
+
+    def b4():
+        return ring_trigger_cuda_padded(t0_pad, cd_pad, cd, ws_new, wd_new,
+                                        ws0, wd0, *flags, params, nn)
+
+    def plain():
+        return trigger_cells(cd, ws_new, wd_new, ws0, wd0, t0_pad, cd_pad,
+                             *flags, params, nn)
+
+    b1()
+    err1 = max(bit_equal(b[0], r, f"{what} B1 {f}")
+               for b, r, f in zip(bufs, ref, ("sb", "ws", "wd")))
+    err4 = max(bit_equal(g, r, f"{what} B4 {f}") for g, r, f in zip(
+        b4(), (ref[0], ref[3], ref[4]), ("sb", "ws", "wd")))
+    bit_equal(ring_thc_cuda_padded(t0_pad, cd_pad, cd, nn),
+              ring_thc_from_padded(ring_quantities(t0_pad, cd_pad),
+                                   torch.where(cd >= 0, 1.0, -1.0), nn,
+                                   coastal=cd.abs() <= float(np.float32(
+                                       params.maxdist)))[0], f"{what} B5")
+    none = "none: no PyTorch call runs an expanding-ring search"
+    unit = tile_mask(cd, params.maxdist)
+    f = int(unit.sum()) / unit.numel()
+    res = {}
+    # the plain version runs ~12 kernels a radius, ~1200-3000 here
+    if time_b1:
+        _, cells, adds = ring_work(cd_pad, cd, nn, params.maxdist, unit)
+        res["b1"] = dict(max_abs_err=err1, nn=nn, f=f, **timing(
+            b1, plain, 48 * cells + unit.numel(), adds, library_note=none,
+            plain_queued=True))
+    if time_b4:
+        # as phase_padded: the padded pair and five fields of every cell
+        # read, three written; the additions of the tiles holding a coastal
+        # cell
+        _, _, adds = ring_work(cd_pad, cd, nn, params.maxdist)
+        res["b4"] = dict(max_abs_err=err4, nn=nn, f=f, **timing(
+            b4, plain, 4 * (t0_pad.numel() + cd_pad.numel() + 8 * nlat * nlon),
+            adds, library_note=none, plain_queued=True))
+    radii = latch_radius(cd_pad, cd, nn, params.maxdist)
+    res["radii"] = radii[radii > 0].double()
+    res["k"] = pipe.k
+    return res
+
+
+def fmt_radii(r):
+    return (f"latch radius over {r.numel()} coastal cells mean "
+            f"{float(r.mean()):.2f}, max {int(r.max())}")
+
+
+def phase_fine(out):
+    """The fine regional world (:func:`fine_world`), whose ring radius takes
+    the large build of B1, B4 and B5: ``diag`` for 8 steps, kernel path
+    against plain (final ws/wd bit-equal); the coupled step
+    (``prepare_mask`` + ``physics``, B2 + B4) over the same steps against
+    plain; B1, B4 and B5 alone on one step, bit for bit, at ``diag``'s NN
+    (B1 timed) and at the coupled step's (B4 timed)."""
+    import torch
+    from seabreeze_param_tpu_torch.core.state import TriggerState
+    from seabreeze_param_tpu_torch.coupling import CoupledTrigger
+    from seabreeze_param_tpu_torch.ops.cuda.ring_kernel import ring_limits
+
+    world = fine_world()
+    grid, (lsm, z, std, pres, theta, u, v, ci) = world
+    T, nlat, nlon = theta.shape
+    dev = torch.device("cuda")
+    large_from = ring_limits()[0]
+    dg = regional_diag(world, "fine", large_from)
+    nn = dg["nn"]
 
     # the coupled step on every step of the world
     d = {k: torch.as_tensor(a, device=dev) for k, a in dict(
@@ -671,76 +780,58 @@ def phase_fine(out):
                  "fine coupled final state",
                  bit_state=("windspeed", "winddir"))
     cnn = CoupledTrigger(grid, device=dev).pipeline().nn_max
+    if cnn < large_from:
+        raise AssertionError(f"fine coupled step at NN = {cnn}: not the "
+                             f"large build")
 
-    # B1, B4 and B5 alone on step 2's inputs at diag's NN
-    params = Params()
-    pipe = TriggerPipeline(grid, device=dev)
-    cd = pipe.distance_field(d["lsm"], d["ci"][2])
-    _, ws_new, wd_new, t0_pad, cd_pad = prepare_step(
-        d["theta"][2], d["u"][2], d["v"][2], cd, d["z"], d["std"],
-        d["pres"], params, nn)
-    rng = np.random.default_rng(1)
-    ws0 = torch.as_tensor((5 + rng.random((nlat, nlon))).astype(np.float32),
-                          device=dev)
-    wd0 = torch.as_tensor(
-        (360 * rng.random((nlat, nlon)) - 180).astype(np.float32), device=dev)
-    flags = cadence(15, params)
-    ref = trigger_cells(cd, ws_new, wd_new, ws0, wd0, t0_pad, cd_pad, *flags,
-                        params, nn)
-    scan = StackedScan(nlat, nlon, params, dev)
-    bufs = scan.init_buffers(1, ws0, wd0)
-    ever = scan.add_coastal(cd)
-    ws_s, wd_s = ws0.clone(), wd0.clone()
-
-    def kernel():
-        ring_trigger_cuda_stacked(t0_pad, cd_pad, cd, ws_new, wd_new, ws_s,
-                                  wd_s, *flags, params, nn, 0, *bufs, ever)
-
-    def plain_b1():
-        return trigger_cells(cd, ws_new, wd_new, ws0, wd0, t0_pad, cd_pad,
-                             *flags, params, nn)
-
-    kernel()
-    err = 0.0
-    for b, r, what in zip(bufs, ref, ("sb", "ws", "wd")):
-        err = max(err, bit_equal(b[0], r, f"fine B1 {what}"))
-    got = ring_trigger_cuda_padded(t0_pad, cd_pad, cd, ws_new, wd_new, ws0,
-                                   wd0, *flags, params, nn)
-    for g, r, what in zip(got, (ref[0], ref[3], ref[4]), ("sb", "ws", "wd")):
-        bit_equal(g, r, f"fine B4 {what}")
-    bit_equal(ring_thc_cuda_padded(t0_pad, cd_pad, cd, nn),
-              ring_thc_from_padded(ring_quantities(t0_pad, cd_pad),
-                                   torch.where(cd >= 0, 1.0, -1.0), nn,
-                                   coastal=cd.abs() <= float(np.float32(
-                                       params.maxdist)))[0], "fine B5")
-    unit = tile_mask(cd, params.maxdist)
-    tiles, cells, adds = ring_work(cd_pad, cd, nn, params.maxdist, unit)
-    # the plain version runs ~12 kernels a radius, ~2500 at NN = 208
-    t = timing(kernel, plain_b1, 48 * cells + unit.numel(), adds,
-               library_note="none: no PyTorch call runs an expanding-ring "
-                            "search", plain_queued=True)
-    radii = latch_radius(cd_pad, cd, nn, params.maxdist)
-    band = radii[radii > 0].double()
-    f = int(unit.sum()) / unit.numel()
+    alone = ring_alone(world, nn, "fine")
+    coupled = ring_alone(world, cnn, f"fine NN={cnn}", time_b1=False,
+                         time_b4=True)
     smi = nvidia_smi()
     log(f"# fine regional {nlat}x{nlon} at {FINE_SPACING} deg (k="
-        f"{pipe.k}, NN={nn}: the ring kernels' large build), {smi}: diag "
-        f"T={T} kernel path {kms:.3f} ms/step, plain path {pms:.3f} "
-        f"ms/step; launches {launches}; matches plain (max |diff| "
-        f"{worst:.3g}, final ws/wd bit-equal); sb missing fraction "
-        f"{miss:.4f}, nonzero triggers {trig}; coupled step (NN={cnn}) "
-        f"kernel path {cms:.3f} ms/step, plain {cpms:.3f}; launches "
-        f"{claunches}; matches plain (max |diff| {cworst:.3g}, final ws/wd "
-        f"bit-equal); B1, B4, B5 bit-equal to plain on one step; B1 "
-        f"{fmt_timing(t)} (plain: events around calls); f {f:.4f} "
-        f"({tiles} of {unit.numel()} tiles); "
-        f"latch radius over {band.numel()} coastal cells mean "
-        f"{float(band.mean()):.2f}, max {int(band.max())}")
-    out.update(launches=launches, coupled_launches=claunches, nn=nn,
-               large_from=large_from,
-               ms_per_step=kms, plain_ms_per_step=pms, coupled_ms_per_step=cms,
-               coupled_plain_ms_per_step=cpms,
-               b1=dict(max_abs_err=err, nn=nn, f=f, **t))
+        f"{alone['k']}, NN={nn}: the ring kernels' large build), {smi}: "
+        f"diag T={T} kernel path {dg['ms_per_step']:.3f} ms/step, plain "
+        f"path {dg['plain_ms_per_step']:.3f} ms/step; launches "
+        f"{dg['launches']}; matches plain (max |diff| "
+        f"{dg['max_abs_err']:.3g}, final ws/wd bit-equal); sb missing "
+        f"fraction {dg['missing']:.4f}, nonzero triggers {dg['triggers']}; "
+        f"coupled step (NN={cnn}) kernel path {cms:.3f} ms/step, plain "
+        f"{cpms:.3f}; launches {claunches}; matches plain (max |diff| "
+        f"{cworst:.3g}, final ws/wd bit-equal); B1, B4, B5 bit-equal to "
+        f"plain on one step at NN={nn} and NN={cnn}; B1 at NN={nn} "
+        f"{fmt_timing(alone['b1'])} (plain: events around calls); f "
+        f"{alone['b1']['f']:.4f}; {fmt_radii(alone['radii'])}; B4 at "
+        f"NN={cnn} {fmt_timing(coupled['b4'])}")
+    out.update(launches=dg["launches"], coupled_launches=claunches, nn=nn,
+               coupled_nn=cnn, large_from=large_from,
+               ms_per_step=dg["ms_per_step"],
+               plain_ms_per_step=dg["plain_ms_per_step"],
+               coupled_ms_per_step=cms, coupled_plain_ms_per_step=cpms,
+               b1=alone["b1"], b4=coupled["b4"])
+
+
+def phase_km(out):
+    """The 1 km world (:func:`km_world`), whose probe takes the ring radius
+    to 243: ``diag`` for 4 steps, kernel path against plain (final ws/wd
+    bit-equal; B1 launched 4 times, B2 5); B1, B4 and B5 alone on one step
+    at ``diag``'s NN, bit for bit, B1 timed."""
+    world = km_world()
+    grid = world[0]
+    dg = regional_diag(world, "1 km", 243)
+    alone = ring_alone(world, dg["nn"], "1 km")
+    nlat, nlon = grid.shape
+    log(f"# 1 km regional {nlat}x{nlon} at {KM_SPACING} deg (k="
+        f"{alone['k']}, NN={dg['nn']}), {nvidia_smi()}: diag T={dg['T']} "
+        f"kernel path {dg['ms_per_step']:.3f} ms/step, plain path "
+        f"{dg['plain_ms_per_step']:.3f} ms/step; launches {dg['launches']}; "
+        f"matches plain (max |diff| {dg['max_abs_err']:.3g}, final ws/wd "
+        f"bit-equal); sb missing fraction {dg['missing']:.4f}, nonzero "
+        f"triggers {dg['triggers']}; B1, B4, B5 bit-equal to plain on one "
+        f"step; B1 {fmt_timing(alone['b1'])} (plain: events around calls); "
+        f"f {alone['b1']['f']:.4f}; {fmt_radii(alone['radii'])}")
+    out.update(launches=dg["launches"], nn=dg["nn"],
+               ms_per_step=dg["ms_per_step"],
+               plain_ms_per_step=dg["plain_ms_per_step"], b1=alone["b1"])
 
 
 def nvidia_smi():
@@ -1641,7 +1732,7 @@ def main():
     b2, b1, padded, main_out = {}, {}, {}, {}
     coupling, fused, dummy = {}, {}, {}
     b6, sharded, diag_mesh, dummy_sharded, driver = {}, {}, {}, {}, {}
-    fine = {}
+    fine, km = {}, {}
     phase_build()
     for name in ("global025", "global010"):
         phase_pass2(name, b2)
@@ -1654,6 +1745,7 @@ def main():
     phase_fused(fused)
     phase_dummy(dummy)
     phase_fine(fine)
+    phase_km(km)
     phase_sharded(sharded)
     phase_diag_mesh(diag_mesh)
     phase_dummy_sharded(dummy_sharded)
@@ -1687,10 +1779,16 @@ def main():
              sharded["launches"]["overlap"]["halo_exchange"],
              f"sharded: ShardedPipeline.run on {SHARD_MESH}, overlapped"),
             ("ring_trigger_stacked_large", "ring_trigger.cu",
-             "ring_kernel.py:694", {"fine": fine["b1"]},
+             "ring_kernel.py:694", {"fine": fine["b1"], "km": km["b1"]},
              fine["launches"]["ring_trigger_stacked"],
              f"fine regional diag, NN = {fine['nn']} >= "
-             f"{fine['large_from']}: B1's large build")):
+             f"{fine['large_from']}: B1's large build (km: the 1 km "
+             f"world's diag, NN = {km['nn']}, {km['launches']})"),
+            ("ring_trigger_padded_large", "ring_trigger.cu",
+             "ring_kernel.py:837", {"fine": fine["b4"]},
+             fine["coupled_launches"]["ring_trigger_padded"],
+             f"fine regional coupled step, NN = {fine['coupled_nn']}: B4's "
+             f"large build")):
         first, *rest = meas
         m = {key: meas[first][key] for key in keys if key in meas[first]}
         # ``ms`` is the line's name for the kernel's device time

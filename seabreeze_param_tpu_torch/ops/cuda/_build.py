@@ -48,21 +48,23 @@ SIGNATURES = {
     # t0_pad, cd_pad, cd, ws_new, wd_new, ws_state, wd_state, ever,
     # sb_buf, ws_buf, wd_buf, h, w, nn, step, is_first, upd, row_offset,
     # nlat_total, skip_last_row, maxdist, thresh_wind, thresh_winddir,
-    # thresh_windch, thresh_thc, stream
+    # thresh_windch, thresh_thc, scratch, stream
     "sbz_ring_trigger_stacked": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                  _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                                 _F, _F, _F, _F, _F, _P),
+                                 _F, _F, _F, _F, _F, _P, _P),
     # t0_pad, cd_pad, cd, ws_new, wd_new, ws_state, wd_state, sb_out,
     # ws_out, wd_out, h, w, nn, is_first, upd, row_offset, nlat_total,
     # skip_last_row, maxdist, thresh_wind, thresh_winddir, thresh_windch,
-    # thresh_thc, stream
+    # thresh_thc, scratch, stream
     "sbz_ring_trigger_padded": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                 _I, _I, _I, _I, _I, _I, _I, _I,
-                                _F, _F, _F, _F, _F, _P),
-    # t0_pad, cd_pad, cd, n_thc, h, w, nn, maxdist, stream
-    "sbz_ring_thc_padded": (_P, _P, _P, _P, _I, _I, _I, _F, _P),
+                                _F, _F, _F, _F, _F, _P, _P),
+    # t0_pad, cd_pad, cd, n_thc, h, w, nn, maxdist, scratch, stream
+    "sbz_ring_thc_padded": (_P, _P, _P, _P, _I, _I, _I, _F, _P, _P),
     # &large_from, &max_nn: the ring radii the three launchers above take
     "sbz_ring_limits": (_P, _P),
+    # h, w, nn, &ints: the int32 scratch the three launchers need
+    "sbz_ring_scratch": (_I, _I, _I, _P),
     # src[S], dst[S] (host pointer arrays), py, px, c, h, w, hy, hx,
     # zero_fill, exact_lon, stream
     "sbz_halo_exchange": (_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),

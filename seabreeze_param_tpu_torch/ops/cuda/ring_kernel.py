@@ -21,8 +21,9 @@ on the device and the kernel compacts it itself: a persistent grid of G
 blocks (as many as the card holds at once), each ranking the set tiles and
 running those of rank b, b + G, b + 2G, ...  B4 and B5 launch one block
 per tile.  On the card the three take ring radii NN up to the limit that
-:func:`ring_limits` reads from the kernels (their large build takes the
-widest radii) and raise beyond.
+:func:`ring_limits` reads from the kernels and raise beyond; from its
+first radius on, their large build takes scratch for an integral image of
+the padded land mask, which the wrappers allocate (:func:`_scratch`).
 """
 from __future__ import annotations
 
@@ -56,7 +57,23 @@ def _require_nn(NN: int, name: str):
     max_nn = ring_limits()[1]
     if NN > max_nn:
         raise ValueError(f"{name}: NN = {NN}, the ring kernels take NN <= "
-                         f"{max_nn}")
+                         f"{max_nn} (past it the window's cell count is not "
+                         f"exact in float32)")
+
+
+def _scratch(h: int, w: int, NN: int, device):
+    """The int32 scratch the kernels ask for at radius NN over an (h, w)
+    field (``sbz_ring_scratch``): their large build's integral image of
+    land, which it builds at each launch; None where they need none."""
+    ints = ctypes.c_longlong()
+    _build.load().sbz_ring_scratch(h, w, NN, ctypes.byref(ints))
+    if ints.value == 0:
+        return None
+    return torch.empty(ints.value, dtype=torch.int32, device=device)
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
 
 
 def tile_grid(h: int, w: int):
@@ -169,6 +186,7 @@ def ring_trigger_cuda_stacked(t0_pad, cd_pad, cd_center, ws_new, wd_new,
                    dtype=torch.uint8)
     f32 = np.float32
     lib = _build.load()
+    scratch = _scratch(h, w, NN, dev)
     with torch.cuda.device(dev):
         err = lib.sbz_ring_trigger_stacked(
             t0_pad.data_ptr(), cd_pad.data_ptr(), cd_center.data_ptr(),
@@ -180,7 +198,7 @@ def ring_trigger_cuda_stacked(t0_pad, cd_pad, cd_center, ws_new, wd_new,
                 float(f32(x)) for x in (
                     params.maxdist, params.thresh_wind, params.thresh_winddir,
                     params.thresh_windch, params.thresh_thc)),
-            torch.cuda.current_stream().cuda_stream)
+            _ptr(scratch), torch.cuda.current_stream().cuda_stream)
     _build.check(err, "ring_trigger_cuda_stacked")
     ring_trigger_cuda_stacked.launches += 1
 
@@ -234,6 +252,7 @@ def ring_trigger_cuda_padded(t0_pad, cd_pad, cd_center, ws_new, wd_new,
                       for _ in range(3))
     f32 = np.float32
     lib = _build.load()
+    scratch = _scratch(h, w, NN, dev)
     with torch.cuda.device(dev):
         err = lib.sbz_ring_trigger_padded(
             t0_pad.data_ptr(), cd_pad.data_ptr(), cd_center.data_ptr(),
@@ -244,7 +263,7 @@ def ring_trigger_cuda_padded(t0_pad, cd_pad, cd_center, ws_new, wd_new,
                 float(f32(x)) for x in (
                     params.maxdist, params.thresh_wind, params.thresh_winddir,
                     params.thresh_windch, params.thresh_thc)),
-            torch.cuda.current_stream().cuda_stream)
+            _ptr(scratch), torch.cuda.current_stream().cuda_stream)
     _build.check(err, "ring_trigger_cuda_padded")
     ring_trigger_cuda_padded.launches += 1
     return sb, ws_o, wd_o
@@ -276,11 +295,12 @@ def ring_thc_cuda_padded(t0_pad, cd_pad, cd_center, nn_max: int, *,
     h, w, dev = _require_pads(t0_pad, cd_pad, cd_center, NN)
     out = torch.empty((h, w), dtype=torch.float32, device=dev)
     lib = _build.load()
+    scratch = _scratch(h, w, NN, dev)
     with torch.cuda.device(dev):
         err = lib.sbz_ring_thc_padded(
             t0_pad.data_ptr(), cd_pad.data_ptr(), cd_center.data_ptr(),
             out.data_ptr(), h, w, NN, float(np.float32(maxdist)),
-            torch.cuda.current_stream().cuda_stream)
+            _ptr(scratch), torch.cuda.current_stream().cuda_stream)
     _build.check(err, "ring_thc_cuda_padded")
     ring_thc_cuda_padded.launches += 1
     return out

@@ -12,7 +12,7 @@ B2 carry ``TriggerPipeline.run``; B3 the fused distance, B4 the per-step
 coupling path, B5 the ring search alone, B6 the halo exchange of the
 decomposed run (``ShardedPipeline``), on ragged, 1-wide and 64-shard
 meshes.  B1, B4 and B5 run ring radii up to the widest their kernels take
-(``ring_limits``: 224, from 58 on their large build).
+(``ring_limits``: 2047, from 52 on their large build).
 """
 import numpy as np
 import pytest
@@ -177,8 +177,10 @@ RING_SHAPES = [(10, 20), (16, 32), (37, 70), (64, 160)]
 def _ring_step(shape, nn, coast, shift, dev, seed=0):
     """Random NN-padded ring inputs of one step and the step's fields:
     ``coast`` 'none' (no cell within maxdist), 'all' (every cell, land on
-    one side of a vertical coast 10 km per column away) or 'line' (a
-    diagonal coast, moved ``shift`` columns)."""
+    one side of a vertical coast 10 km per column away), 'line' (a
+    diagonal coast, moved ``shift`` columns) or 'land' (every cell land
+    within maxdist, so no window ever holds both classes and every cell
+    runs to NN)."""
     h, w = shape
     rng = np.random.default_rng(seed)
     y, x = np.mgrid[-nn:h + nn, -nn:w + nn].astype(np.float32)
@@ -186,6 +188,8 @@ def _ring_step(shape, nn, coast, shift, dev, seed=0):
         cd = 500.0 + 100.0 * rng.random(y.shape)
     elif coast == "all":
         cd = np.clip((x - w // 2) * (360.0 / max(w, 2)), -180.0, 180.0)
+    elif coast == "land":
+        cd = 50.0 + 100.0 * rng.random(y.shape)
     else:
         cd = (x + 0.5 * y - w // 3 - shift) * 10.0
     cd = np.where(cd == 0, 1.0, cd).astype(np.float32)
@@ -217,22 +221,23 @@ def _ring_padded_both(t0_pad, cd_pad, cd, ws_new, wd_new, ws0, wd0, flags,
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", RING_SHAPES)
-@pytest.mark.parametrize("nn", [1, 10, 19, 25, 37, 52, 53, 57, 58, 65, 97,
-                                109, 110, 160, "max"])
-@pytest.mark.parametrize("coast", ["none", "all", "line"])
+@pytest.mark.parametrize("nn", [1, 10, 19, 25, 37, 51, 52, 53, 57, 58, 65, 97,
+                                109, 110, 160, 224, 225, 243, 320, "max"])
+@pytest.mark.parametrize("coast", ["none", "all", "line", "land"])
 def test_ring_stacked_two_steps_bit_equal_to_plain(shape, nn, coast, dev):
     """B1 over two steps of one scan from tt = 14 (the coast moving between
     them, so a tile can be ever-coastal and not coastal now), against
     ``trigger_cells`` step by step: every slot and the wind state bit for
-    bit, with no ever-coastal tile ('none'), every tile ('all') or a band;
-    B4 and B5 on the same steps.  NN 1 to 24 is the first build (4 hp and
-    3 vc elements per thread), 25 to 57 the second (9 and 5), with the
-    running sums double-buffered up to 52 and single-buffered where only
-    one buffer fits a block's shared memory (53 to 57).  From 58 to the
-    widest radius ('max', 224) the large build (strip read from device
-    memory, sums and land counts in shared memory): double-buffered up to
-    109, single-buffered from 110; 97 is the 0.015-degree regional grid's
-    static bound, 208 the radius ``diag`` probes there."""
+    bit, with no ever-coastal tile ('none'), every tile ('all'), a band,
+    or every cell running to NN ('land'); B4 and B5 on the same steps.  NN
+    1 to 24 is the first build (4 hp and 3 vc elements per thread), 25 to
+    51 the second (9 and 5).  From 52 to the widest radius ('max', 2047)
+    the large build (radii in bands of 16, the elements a band reads
+    carried in registers, latch radii from an integral image of land): 97
+    is the 0.015-degree regional grid's static bound, 208 the radius
+    ``diag`` probes there, 224 the widest radius of the large build before
+    its redesign, 243 the radius ``diag`` probes on a 0.009-degree (1 km)
+    grid, 320 well past it."""
     if nn == "max":
         nn = ring_limits()[1]
     params = Params()
@@ -270,37 +275,57 @@ def test_ring_stacked_two_steps_bit_equal_to_plain(shape, nn, coast, dev):
         assert bool(scan.ever.all())
 
 
-@pytest.mark.cuda
-def test_ring_launchers_refuse_nn_225(dev):
-    """The kernels take every NN the large build was asked to (58 at the
-    latest, 160 at least); NN = 225, one past their widest radius, is the
-    first whose running sums would overflow a block's 227 KB even
-    single-buffered: B1, B4 and B5 raise, naming the limit, and count no
-    launch (NN = 224 runs: test_ring_stacked_two_steps_bit_equal_to_plain)."""
+def _ring_launch_all(dev, h, w, nn, params):
+    """One launch of each of B1, B4 and B5 on zero fields padded at
+    ``nn``."""
     def zeros(*shape):
         return torch.zeros(shape, device=dev)
 
-    large_from, max_nn = ring_limits()
-    assert large_from <= 58 and max_nn >= 160
-    h, w, nn, params = 8, 8, max_nn + 1, Params()
-    assert nn == 225
     pads = (zeros(h + 2 * nn, w + 2 * nn), zeros(h + 2 * nn, w + 2 * nn))
-    counts = lambda: (ring_trigger_cuda_stacked.launches,  # noqa: E731
-                      ring_trigger_cuda_padded.launches,
-                      ring_thc_cuda_padded.launches)
-    before = counts()
     scan = StackedScan(h, w, params, dev)
     bufs = scan.init_buffers(1, zeros(h, w), zeros(h, w))
-    with pytest.raises(ValueError, match=f"NN <= {nn - 1}"):
-        ring_trigger_cuda_stacked(*pads, *(zeros(h, w) for _ in range(5)),
-                                  False, False, params, nn, 0, *bufs,
-                                  scan.ever)
-    with pytest.raises(ValueError, match=f"NN <= {nn - 1}"):
-        ring_trigger_cuda_padded(*pads, *(zeros(h, w) for _ in range(5)),
-                                 False, False, params, nn)
-    with pytest.raises(ValueError, match=f"NN <= {nn - 1}"):
-        ring_thc_cuda_padded(*pads, zeros(h, w), nn)
-    assert counts() == before
+    yield lambda: ring_trigger_cuda_stacked(
+        *pads, *(zeros(h, w) for _ in range(5)), False, False, params, nn, 0,
+        *bufs, scan.ever)
+    yield lambda: ring_trigger_cuda_padded(
+        *pads, *(zeros(h, w) for _ in range(5)), False, False, params, nn)
+    yield lambda: ring_thc_cuda_padded(*pads, zeros(h, w), nn)
+
+
+def _ring_counts():
+    return (ring_trigger_cuda_stacked.launches,
+            ring_trigger_cuda_padded.launches, ring_thc_cuda_padded.launches)
+
+
+@pytest.mark.cuda
+def test_ring_launchers_take_nn_243(dev):
+    """NN = 243, the radius ``diag`` probes on a 1 km grid
+    (``tools/ring_nn.py``) and past the large build's old limit of 224: B1,
+    B4 and B5 each launch once (their results: test_ring_stacked_two_steps_
+    bit_equal_to_plain)."""
+    large_from, max_nn = ring_limits()
+    assert large_from <= 58 and max_nn >= 243
+    for k, launch in enumerate(_ring_launch_all(dev, 8, 8, 243, Params())):
+        before = _ring_counts()
+        launch()
+        torch.cuda.synchronize()
+        want = list(before)
+        want[k] += 1
+        assert _ring_counts() == tuple(want)
+
+
+@pytest.mark.cuda
+def test_ring_launchers_refuse_past_max_nn(dev):
+    """One past the widest radius the kernels take (2047, where the
+    window's cell count stops being exact in float32): B1, B4 and B5 raise
+    ``ValueError`` naming the limit, and count no launch."""
+    max_nn = ring_limits()[1]
+    assert max_nn == 2047
+    before = _ring_counts()
+    for launch in _ring_launch_all(dev, 8, 8, max_nn + 1, Params()):
+        with pytest.raises(ValueError, match=f"NN <= {max_nn}"):
+            launch()
+    assert _ring_counts() == before
 
 
 @pytest.mark.cuda
@@ -445,7 +470,7 @@ def test_launchers_reject_oversized_shared_memory(dev):
 @pytest.mark.cuda
 def test_new_launchers_reject_oversized_shared_memory(dev):
     """B3 at a radius of 1000 cells needs more shared memory than a block
-    may hold, and B4/B5 at NN = 225 run past their widest radius: each
+    may hold, and B4/B5 at NN = 2048 run past their widest radius: each
     wrapper raises, counts no launch, and the next good launch is not
     blamed."""
     def zeros(*shape):

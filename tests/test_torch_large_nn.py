@@ -1,14 +1,17 @@
 """The port at ring radii past 57, on the CPU, against the JAX package.
 
-A regional 80 x 96 world at 0.015 degrees (about 1.5 km, the spacing of
-convection-permitting regional models) near the equator: the distance
-search reaches k = 76 cells and the ring search NN = 80.  On the card the
-ring kernels take such radii with their large build (``csrc/ring_trigger.cu``,
+Two regional worlds near the equator: 80 x 96 cells at 0.015 degrees
+(about 1.5 km, the spacing of convection-permitting regional models), where
+the distance search reaches k = 76 cells and the ring search NN = 80; and
+48 x 256 cells at 0.0045 degrees (0.5 km), where k = 254 and NN = 258, past
+the 243 of a 1 km grid at 54 N (``tools/ring_nn.py``).  On the card the ring
+kernels take such radii with their large build (``csrc/ring_trigger.cu``,
 held bit-equal to the plain versions by ``tests/test_torch_cuda.py``); on the
 CPU every wrapper takes its plain version, so these cases pin the behaviour
 the large build is held to: ``diag`` (plain route, and the kernel route whose
-wrappers run plain here) and the coupled step (``prepare_mask`` +
-``physics``, 1-D and 3-D pressure) over two steps.  Tolerances (ROADMAP):
+wrappers run plain here) on both worlds, and the coupled step
+(``prepare_mask`` + ``physics``, 1-D and 3-D pressure) on the first, over
+two steps.  Tolerances (ROADMAP):
 MISSING structure equal, then rtol 2e-5 / atol 2e-4; the final wind
 bit-equal wherever both packages' fresh winds agree bit for bit (XLA
 contracts u*u + v*v into an FMA inside its jitted step).
@@ -36,19 +39,38 @@ from seabreeze_param_tpu_torch.models.pipeline import TriggerPipeline
 from seabreeze_param_tpu_torch.ops import trigger as ttrig
 
 MISSING = np.float32(2.0e20)
-NLAT, NLON, NSTEPS, SPACING = 80, 96, 2, 0.015
+NSTEPS = 2
+#: name: (nlat, nlon, spacing in degrees, the least NN diag must run at)
+WORLDS = {"80x96": (80, 96, 0.015, 58), "48x256": (48, 256, 0.0045, 244)}
 
 
 @functools.cache
-def world():
-    """``make_world`` fields of the 80 x 96 world and its coordinates."""
-    lsm, z, std, pres, theta, u, v, ci = make_world(NLAT, NLON, 4, NSTEPS,
+def world(name="80x96"):
+    """``make_world`` fields of one of :data:`WORLDS` from 1.2 N southward,
+    and its coordinates."""
+    nlat, nlon, spacing, _ = WORLDS[name]
+    lsm, z, std, pres, theta, u, v, ci = make_world(nlat, nlon, 4, NSTEPS,
                                                     seed=3)
-    lat = np.linspace(1.2, 1.2 - (NLAT - 1) * SPACING, NLAT).astype(
+    lat = np.linspace(1.2, 1.2 - (nlat - 1) * spacing, nlat).astype(
         np.float32)
-    lon = np.linspace(0.0, NLON * SPACING, NLON, endpoint=False).astype(
+    lon = np.linspace(0.0, nlon * spacing, nlon, endpoint=False).astype(
         np.float32)
     return lsm, z, std, pres, theta, u, v, ci, lat, lon
+
+
+@functools.cache
+def jax_diag(name):
+    """JAX ``diag`` of world ``name`` over its steps (full output).  The
+    48 x 256 world runs op by op (``jax.disable_jit``): there XLA takes
+    minutes on the CPU to compile the ring loop at NN = 258, and op by op
+    is the same arithmetic (it may differ from the jitted step by FMA
+    contraction, which the tolerances below cover)."""
+    lsm, z, std, pres, theta, u, v, ci, lat, lon = world(name)
+    args = (1, lsm, z, std, lon, lat, pres, u, v, theta, ci)
+    if name == "80x96":
+        return jdiag(*args, full_output=True)
+    with jax.disable_jit():
+        return jdiag(*args, full_output=True)
 
 
 def _np(x):
@@ -94,15 +116,18 @@ def _final_wind(got_ws, got_wd, ref_ws, ref_wd, agree):
         np.testing.assert_allclose(g, r, err_msg=what, **tol)
 
 
-@pytest.mark.parametrize("path", ["diag", "diag_kernel_route",
-                                  "coupled_1d", "coupled_3d"])
-def test_large_nn_matches_jax(path):
-    lsm, z, std, pres, theta, u, v, ci, lat, lon = world()
+@pytest.mark.parametrize("name,path", [
+    *(pytest.param("80x96", p, id=p) for p in (
+        "diag", "diag_kernel_route", "coupled_1d", "coupled_3d")),
+    *(pytest.param("48x256", p, id=f"48x256-{p}") for p in (
+        "diag", "diag_kernel_route"))])
+def test_large_nn_matches_jax(name, path):
+    lsm, z, std, pres, theta, u, v, ci, lat, lon = world(name)
     nn = TriggerPipeline(Grid(lon=lon, lat=lat), device="cpu").nn_max
-    assert nn > 57, nn
+    assert nn >= WORLDS[name][3], nn
     if path.startswith("diag"):
         args = (1, lsm, z, std, lon, lat, pres, u, v, theta, ci)
-        ref = jdiag(*args, full_output=True)
+        ref = jax_diag(name)
         got = diag(*args, device="cpu", full_output=True,
                    use_kernels=path == "diag_kernel_route")
         assert got[0] == ref[0] == 1 + NSTEPS

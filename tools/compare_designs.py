@@ -23,7 +23,17 @@ Builds, with one ``nvcc`` per library, all started together:
   next tile's strip staged with ``cp.async`` during this tile's ring loop,
   32 x 32 tiles of two cells per thread, and both;
 * B1/B4/B5 ``large``: ``ring_trigger.cu`` with every NN on its large build
-  (``-DSBZ_RING_LARGE_FROM=1``), which the port takes from NN = 58;
+  (``-DSBZ_RING_LARGE_FROM=1``), which the port takes from NN = 52;
+* B1/B4/B5 ``no_vc_stage``, ``no_corners``, ``land_chains``, ``first``,
+  ``staged_2block``, ``unstaged`` and ``image_2block``:
+  ``tools/designs/ring_trigger_large_variants.cu``, the large build with
+  the entering vc columns' cells read through L1; with that and the
+  per-radius steps' cells read through L1 too; with the land channel
+  summed as integer chains beside the sums instead of an integral image
+  (the latch found during the sweep, a vote per radius, no corner squares,
+  no vc staging); the same with every cell read through L1 and two blocks
+  per SM (the first design), with two blocks per SM, with the entering hp
+  rows read through L1; and the port's held to two blocks per SM;
 * B6 ``occupancy4`` and ``unroll2``: ``tools/designs/
   halo_exchange_rows_variants.cu``, the port's design held to 64 registers
   (four blocks per SM against two), and with two 16-byte units per lane in
@@ -39,9 +49,12 @@ the L2 flushed by a write before each call (the smoke's timing), flushed by
 a read (no dirty lines to write back), and warm (the inputs left in L2 by
 the call before).  B1, B2, B4 and B5 on the inputs of ``chip_smoke.py``'s
 kernel phases at global 0.25 and 0.1 degrees; B1 also at 0.1 degree padded
-to NN = 40 and 57 (the second small build against the large one, which
-sets where the large build starts) and on ``chip_smoke.fine_world`` (NN =
-97); B6 on random 2 x 4 shards of both grids at the width of theta's
+to NN = 40, 44, 48, 52 and 57 (the second small build against the large
+one, which sets where the large build starts), on
+``chip_smoke.fine_world`` at the coupled step's NN = 97 and ``diag``'s NN
+= 208 (B4 at 97), and on
+``chip_smoke.km_world`` at ``diag``'s NN = 243 (no build of the parent
+takes it); B6 on random 2 x 4 shards of both grids at the width of theta's
 exchange (NN), beside two yardsticks in the same passes: ``take``, the
 smoke's library call (``torch.take`` through an index map), and ``copy``, a
 ``Tensor.copy_`` of as many bytes as the exchange writes.  Last, the host
@@ -98,6 +111,16 @@ def builds(against):
     b1["tall"] = (var, ("-DSBZ_RING_CPT=2",))
     b1["tall_prefetch"] = (var, ("-DSBZ_RING_CPT=2", "-DSBZ_RING_PREFETCH=1"))
     b1["large"] = (CSRC / "ring_trigger.cu", ("-DSBZ_RING_LARGE_FROM=1",))
+    lv = DESIGNS / "ring_trigger_large_variants.cu"
+    chains = "-DSBZ_RING_LAND_CHAINS=1"
+    b1["no_vc_stage"] = (lv, ("-DSBZ_RING_VC_STAGE=0",))
+    b1["no_corners"] = (lv, ("-DSBZ_RING_VC_STAGE=0", "-DSBZ_RING_CORNERS=0"))
+    b1["land_chains"] = (lv, (chains,))
+    b1["first"] = (lv, (chains, "-DSBZ_RING_STAGE=0",
+                        "-DSBZ_RING_LARGE_BLOCKS=2"))
+    b1["staged_2block"] = (lv, (chains, "-DSBZ_RING_LARGE_BLOCKS=2"))
+    b1["unstaged"] = (lv, (chains, "-DSBZ_RING_STAGE=0"))
+    b1["image_2block"] = (lv, ("-DSBZ_RING_LARGE_BLOCKS=2",))
     rows = DESIGNS / "halo_exchange_rows_variants.cu"
     b6["occupancy4"] = (rows, ("-DSBZ_HALO_MIN_BLOCKS=4",))
     b6["unroll2"] = (rows, ("-DSBZ_HALO_UNROLL=2",))
@@ -130,10 +153,35 @@ def build_all(table):
         lib = ctypes.CDLL(str(path))
         for fn, args in _build.SIGNATURES.items():
             if hasattr(lib, fn):
-                getattr(lib, fn).argtypes = list(args)
+                # ring launchers from before their scratch argument
+                old = fn in RING_LAUNCHERS and not hasattr(lib,
+                                                          "sbz_ring_scratch")
+                getattr(lib, fn).argtypes = list(args[:-2] + args[-1:] if old
+                                                 else args)
                 getattr(lib, fn).restype = ctypes.c_int
         libs[key] = lib
     return libs
+
+
+RING_LAUNCHERS = ("sbz_ring_trigger_stacked", "sbz_ring_trigger_padded",
+                  "sbz_ring_thc_padded")
+
+
+def ring_scratch(lib, h, w, nn, device):
+    """``(args, buf)``: the scratch argument of ``lib``'s ring launchers at
+    radius ``nn`` over an (h, w) field, as a tuple to splice in before the
+    stream (empty for a library from before that argument, else the
+    pointer to as many int32 as the library asks for, None where it asks
+    for none), and the tensor behind it, which the caller keeps."""
+    import torch
+    if not hasattr(lib, "sbz_ring_scratch"):
+        return (), None
+    ints = ctypes.c_longlong()
+    lib.sbz_ring_scratch(h, w, nn, ctypes.byref(ints))
+    if ints.value == 0:
+        return (None,), None
+    buf = torch.empty(ints.value, dtype=torch.int32, device=device)
+    return (buf.data_ptr(),), buf
 
 
 def stream():
@@ -185,15 +233,15 @@ def b2_case(name):
 def ring_inputs(name, nn=None):
     """One step of a world (tt = 15, a wind refresh) on the card: the ring
     kernels' inputs padded at ``nn`` (default: the pipeline's NN) and the
-    state.  ``name``: one of ``bench.GRIDS``, or ``fine`` for
-    ``chip_smoke.fine_world``."""
+    state.  ``name``: one of ``bench.GRIDS``, ``fine`` for
+    ``chip_smoke.fine_world`` or ``km`` for ``chip_smoke.km_world``."""
     import torch
     from bench import GRIDS, make_world
     from seabreeze_param_tpu_torch.core.params import Params
     from seabreeze_param_tpu_torch.models.pipeline import TriggerPipeline
     from seabreeze_param_tpu_torch.ops.trigger import cadence, prepare_step
-    if name == "fine":
-        grid, world = cs.fine_world()
+    if name in ("fine", "km"):
+        grid, world = cs.fine_world() if name == "fine" else cs.km_world()
         nlat, nlon = grid.shape
     else:
         grid, _, _ = cs.world_grid(name)
@@ -247,15 +295,17 @@ def b1_case(name, nn=None):
 
     def make_call(lib):
         ever = cs.tile_mask(cd, params.maxdist, tile_of(lib))
+        scratch, buf = ring_scratch(lib, nlat, nlon, nn, cd.device)
 
-        def call():
+        def call(buf=buf):
             err = lib.sbz_ring_trigger_stacked(
                 x["t0_pad"].data_ptr(), x["cd_pad"].data_ptr(), cd.data_ptr(),
                 x["ws_new"].data_ptr(), x["wd_new"].data_ptr(),
                 state[0].data_ptr(), state[1].data_ptr(), ever.data_ptr(),
                 bufs[0].data_ptr(), bufs[1].data_ptr(), bufs[2].data_ptr(),
                 nlat, nlon, nn, 0, int(is_first), int(upd), 0, nlat,
-                int(params.skip_last_lat_row), *_scalars(params), stream())
+                int(params.skip_last_lat_row), *_scalars(params), *scratch,
+                stream())
             assert err == 0, f"sbz_ring_trigger_stacked: cudaError_t {err}"
         return call
 
@@ -273,11 +323,12 @@ def b1_case(name, nn=None):
     return check, make_call
 
 
-def b4_case(name):
-    """(check, make_call) for B4 (every tile, one step) at ``name``."""
+def b4_case(name, nn=None):
+    """(check, make_call) for B4 (every tile, one step) at ``name``
+    (padded at ``nn``)."""
     import torch
     from seabreeze_param_tpu_torch.ops.trigger import trigger_cells
-    x = ring_inputs(name)
+    x = ring_inputs(name, nn)
     nlat, nlon, nn, params, cd = (x[k] for k in ("nlat", "nlon", "nn",
                                                  "params", "cd"))
     is_first, upd = x["flags"]
@@ -288,11 +339,14 @@ def b4_case(name):
     outs = [torch.empty((nlat, nlon), device=cd.device) for _ in range(3)]
 
     def make_call(lib):
-        def call():
+        scratch, buf = ring_scratch(lib, nlat, nlon, nn, cd.device)
+
+        def call(buf=buf):
             err = lib.sbz_ring_trigger_padded(
                 *(t.data_ptr() for t in ins + outs), nlat, nlon, nn,
                 int(is_first), int(upd), 0, nlat,
-                int(params.skip_last_lat_row), *_scalars(params), stream())
+                int(params.skip_last_lat_row), *_scalars(params), *scratch,
+                stream())
             assert err == 0, f"sbz_ring_trigger_padded: cudaError_t {err}"
         return call
 
@@ -320,10 +374,12 @@ def b5_case(name):
     out = torch.empty((nlat, nlon), device=cd.device)
 
     def make_call(lib):
-        def call():
+        scratch, buf = ring_scratch(lib, nlat, nlon, nn, cd.device)
+
+        def call(buf=buf):
             err = lib.sbz_ring_thc_padded(
                 x["t0_pad"].data_ptr(), x["cd_pad"].data_ptr(), cd.data_ptr(),
-                out.data_ptr(), nlat, nlon, nn, maxdist, stream())
+                out.data_ptr(), nlat, nlon, nn, maxdist, *scratch, stream())
             assert err == 0, f"sbz_ring_thc_padded: cudaError_t {err}"
         return call
 
@@ -498,19 +554,27 @@ def main():
     result = {"floor": floor}
     mine = ["this", *against]
     ring = mine + ["large"]
+    pr5 = ["variants", "prefetch", "tall", "tall_prefetch"]
+    large = ["no_vc_stage", "no_corners", "land_chains", "first",
+             "staged_2block", "unstaged", "image_2block"]
     # (kernel, library group, size, case, builds: None for every build of
     # the group that exports the kernel's launcher)
     plan = []
     for size in ("global025", "global010"):
         plan += [("B2", "B2", size, lambda z=size: b2_case(z), None),
-                 ("B1", "B1", size, lambda z=size: b1_case(z), None),
+                 ("B1", "B1", size, lambda z=size: b1_case(z), ring + pr5),
                  ("B4", "B1", size, lambda z=size: b4_case(z), ring),
                  ("B5", "B1", size, lambda z=size: b5_case(z), ring),
                  ("B6", "B6", size, lambda z=size: b6_case(z), None)]
     plan += [("B1", "B1", f"global010@{nn}",
-              lambda nn=nn: b1_case("global010", nn), ring)
-             for nn in (40, 57)]
-    plan += [("B1", "B1", "fine", lambda: b1_case("fine"), ["this"])]
+              lambda nn=nn: b1_case("global010", nn),
+              ["this", "large"]) for nn in (40, 44, 48, 52, 57)]
+    plan += [("B1", "B1", f"fine@{nn}", lambda nn=nn: b1_case("fine", nn),
+              mine + large) for nn in (97, 208)]
+    plan += [("B4", "B1", "fine@97", lambda: b4_case("fine", 97),
+              mine + large)]
+    plan += [("B1", "B1", "km@243", lambda: b1_case("km", 243),
+              ["this"] + large)]
     for kern, group, size, case, names in plan:
         if kern not in only:
             continue
