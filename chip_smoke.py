@@ -8,36 +8,42 @@ Builds the hand-written kernels of ``seabreeze_param_tpu_torch/csrc`` with
 times it (device time with the L2 flushed, a caller's time, the plain
 version's, the least time the card could take, and one library call's
 where there is one), checks the port's ``diag`` against the
-loop-faithful NumPy oracle on a small world, then drives ``diag`` once at global 0.25 degrees (721 x 1440, 4
-levels, 32 steps, moving polar sea ice) and holds it against the plain path.
-Then the per-step paths, each against its plain version: the coupling API
-(``CoupledTrigger``, kernel B4, with B5 alone on the same steps), the fused
-distance (``distance_impl='fused'``, kernel B3) and the dummy model.  Then
-a kilometre-scale regional world (1024 x 1024 at 0.015 deg, whose ring
-radius takes the large build of B1, B4 and B5): ``diag`` and the coupled
-step against their plain paths, and B1's large build timed.  Then
-the decomposed run on a 2 x 4 mesh of the one card: the halo exchange B6
-alone against its plain version at the shard shapes of 0.25 and 0.1 deg,
-``ShardedPipeline.run`` for 16 steps of the main world, overlapped (B6 +
-B2 + B1) against the single-device run and its own plain path, basic (B6 +
-B2 + B4) against overlapped, ``diag(mesh='2x4')`` against ``diag()``, and
-the dummy model's ``--sharded``.  Last the batch driver (``cli/run.py``)
-over a daily netCDF series of the main world written into a temporary
-directory (3 files of 4 steps): kernel path against plain, bit-equal to
-the same ``diag`` calls on the in-memory arrays, ``--mesh=2x4`` against
-the single device, a resume from a checkpoint bit-equal to the unbroken
-run, the native reader in use, and the composites.  Each path's launch
-counts are zeroed just before it runs and read just after.  Any failed
-check raises, so the exit code is non-zero.
+loop-faithful NumPy oracle on a small world, then drives ``diag`` once at
+global 0.25 degrees (721 x 1440, 4 levels, 32 steps, moving polar sea ice)
+and holds it against the plain path.  Then the per-step paths, each
+against its plain version: the coupling API (``CoupledTrigger``, kernel
+B4, with B5 alone on the same steps), the two distances of
+``TriggerPipeline.run`` against each other (``'fused'``, kernel B3, the
+card's default, and ``'hybrid'``, torch pass 1 + kernel B2) and the dummy
+model.  Then two kilometre-scale regional worlds (1024 x 1024 at 0.015
+and at 0.009 deg, whose ring radii take the large build of B1, B4 and B5
+and whose distance radii, k = 93 and 155, the first design of B3
+refused): ``diag`` (and at 0.015 deg the coupled step) against their
+plain paths, B1's large build timed, the fused distance bit-equal to the
+hybrid's and B3 timed beside the hybrid.  Then the decomposed run on a 2
+x 4 mesh of the one card: the halo exchange B6 alone against its plain
+version at the shard shapes of 0.25 and 0.1 deg, ``ShardedPipeline.run``
+for 16 steps of the main world, overlapped (B6 + B3 + B1) against the
+single-device run and its own plain path, basic (B6 + B3 + B4) against
+overlapped, ``diag(mesh='2x4')`` against ``diag()``, and the dummy
+model's ``--sharded``.  Last the batch driver (``cli/run.py``) over a
+daily netCDF series of the main world written into a temporary directory
+(3 files of 4 steps): kernel path against plain, bit-equal to the same
+``diag`` calls on the in-memory arrays, ``--mesh=2x4`` against the single
+device, a resume from a checkpoint bit-equal to the unbroken run, the
+native reader in use, and the composites.  Each path's launch counts are
+zeroed just before it runs and read just after; the distance kernel they
+expect is the one the package's ``'auto'`` takes on the card
+(:func:`dist_kernel`).  Any failed check raises, so the exit code is
+non-zero.
 
 Output: a line with the card's name and power limit (``nvidia-smi``), one
 line per phase, a JSON line ``{"kernels": [...]}`` with each kernel's
 launches on its path, error against its plain version, times, bound and
 share of the bound at 0.25 deg (0.1 deg under ``global010``; the large
-build at the fine world), and as the last line ``{"ok": true, "device":
-{...}}``.  Without a CUDA device it
-exits non-zero and prints no result.
-Imports nothing of JAX.
+build and B3 at the fine and 1 km worlds under ``fine`` and ``km``), and
+as the last line ``{"ok": true, "device": {...}}``.  Without a CUDA device
+it exits non-zero and prints no result.  Imports nothing of JAX.
 """
 from __future__ import annotations
 
@@ -483,10 +489,6 @@ def phase_main(out):
     """The main path: diag at global 0.25 deg, 32 steps, moving sea ice."""
     import torch
     from seabreeze_param_tpu_torch.api import diag
-    from seabreeze_param_tpu_torch.ops.cuda.distance_kernel import (
-        pass2_min_cuda)
-    from seabreeze_param_tpu_torch.ops.cuda.ring_kernel import (
-        ring_trigger_cuda_stacked)
 
     grid, (lsm, z, std, pres, theta, u, v, ci) = main_world()
     lon, lat = grid.lon, grid.lat
@@ -504,14 +506,10 @@ def phase_main(out):
     run()                                   # warm-up
     zero_launches()
     kern, secs = run()
-    launches = {"pass2_min": pass2_min_cuda.launches,
-                "ring_trigger": ring_trigger_cuda_stacked.launches}
-    if launches["ring_trigger"] != T:
-        raise AssertionError(f"ring_trigger launched "
-                             f"{launches['ring_trigger']} times, want {T}")
-    if launches["pass2_min"] < T:
-        raise AssertionError(f"pass2_min launched {launches['pass2_min']} "
-                             f"times, want >= {T}")
+    launches = {n: c for n, c in read_launches().items() if c}
+    want = {"ring_trigger_stacked": T, dist_kernel(): T + 1}  # + the probe
+    if launches != want:
+        raise AssertionError(f"main path launches {launches}, want {want}")
     plain, plain_secs = run(use_kernels=False)
     if kern[0] != plain[0] or kern[0] != 1 + T:
         raise AssertionError("main path: tt differs")
@@ -597,8 +595,9 @@ def diag_nn(grid):
 
 def regional_diag(world, what, least_nn):
     """``diag`` over a regional world (:func:`regional_world`), kernel path
-    against plain (final ws/wd bit-equal), B1 launched once a step and B2
-    once more for the probe, at an NN of at least ``least_nn``."""
+    against plain (final ws/wd bit-equal), B1 launched once a step and the
+    distance kernel (:func:`dist_kernel`) once more for the probe, at an NN
+    of at least ``least_nn``."""
     import torch
     from seabreeze_param_tpu_torch.api import diag
     grid, (lsm, z, std, pres, theta, u, v, ci) = world
@@ -616,7 +615,7 @@ def regional_diag(world, what, least_nn):
     zero_launches()
     kern, kms = run()
     launches = {n: c for n, c in read_launches().items() if c}
-    want = {"ring_trigger_stacked": T, "pass2_min": T + 1}  # + the probe
+    want = {"ring_trigger_stacked": T, dist_kernel(): T + 1}  # + the probe
     if launches != want:
         raise AssertionError(f"{what} diag launches {launches}, want {want}")
     nn = diag_nn(grid)
@@ -720,6 +719,74 @@ def ring_alone(world, nn, what, *, time_b1=True, time_b4=False):
     return res
 
 
+def b3_bound(cpad, amin, k):
+    """B3's least work on one call: its bytes (the padded coast field and
+    the three tables read once, amin written once) and its operations: a
+    comparison and a select per padded cell for pass 1, and for pass 2 a
+    multiply, an add and a minimum on each of the 2k+1 taps of the outputs
+    in reach (amin < BIG/2; the others need no tap: their windows hold no
+    coast).  Returns (bytes, operations)."""
+    h, w = amin.shape
+    nwin = 2 * k + 1
+    reach = int((amin < float(BIG) / 2).sum())
+    return (4 * (cpad.numel() + h * w + (2 * h + w) * nwin),
+            2 * (h + 2 * k) * w + 3 * nwin * reach)
+
+
+def fused_regional(world, what):
+    """B3 on a regional world's first step: ``TriggerPipeline(
+    distance_impl='fused')``'s distance bit-equal to the hybrid's (the
+    first design refused k >= 89), B3 alone bit-equal to plain and timed
+    beside the hybrid (torch pass 1 + B2; both plain versions launch
+    ~3(2k+1) kernels a call, more than the card queues, so they are timed
+    by events around calls)."""
+    import torch
+    from seabreeze_param_tpu_torch.models.pipeline import TriggerPipeline
+    from seabreeze_param_tpu_torch.ops.coastline import get_edges
+    from seabreeze_param_tpu_torch.ops.cuda.distance_kernel import (
+        min_haversine_param_cuda, pass2_min_cuda)
+    from seabreeze_param_tpu_torch.ops.distance import (
+        min_haversine_param_from_padded, pad_coast, pass1_extrema)
+    grid, (lsm, *_, ci) = world
+    dev = torch.device("cuda")
+    L, C = (torch.as_tensor(a, device=dev) for a in (lsm, ci[0]))
+    fused = TriggerPipeline(grid, device=dev, distance_impl="fused")
+    hybrid = TriggerPipeline(grid, device=dev, distance_impl="hybrid")
+    zero_launches()
+    fd = fused.distance_field(L, C)
+    launches = {n: c for n, c in read_launches().items() if c}
+    if launches != {"min_haversine": 1}:
+        raise AssertionError(f"{what} fused distance launches {launches}")
+    bit_equal(fd, hybrid.distance_field(L, C),
+              f"{what} fused distance vs hybrid")
+    k, tabs = fused.k, fused._tables()
+    cpad = pad_coast(get_edges(L, C), k)
+
+    def b3():
+        return min_haversine_param_cuda(cpad, *tabs, k,
+                                        monotone=tabs.monotone)
+
+    amin = b3()
+    err = bit_equal(amin, min_haversine_param_from_padded(cpad, *tabs, k),
+                    f"{what} B3")
+    nbytes, ops = b3_bound(cpad, amin, k)
+    none = "none: no PyTorch call runs a masked min over a separable window"
+    return dict(max_abs_err=err, k=k, hybrid_ms=call_ms(
+        lambda: pass2_min_cuda(pass1_extrema(cpad, tabs[2], k), tabs[0],
+                               tabs[1], k), reps=3),
+        **timing(b3, lambda: min_haversine_param_from_padded(
+            cpad, *tabs, k), nbytes, ops, library_note=none,
+            plain_queued=True))
+
+
+def fmt_b3(r):
+    return (f"fused distance (TriggerPipeline(distance_impl='fused')) "
+            f"bit-equal to the hybrid's on step 0; B3 at k={r['k']} "
+            f"bit-equal to plain, {fmt_timing(r)} (plain: events around "
+            f"calls); hybrid distance {r['hybrid_ms']:.4f} ms (events "
+            f"around calls)")
+
+
 def fmt_radii(r):
     return (f"latch radius over {r.numel()} coastal cells mean "
             f"{float(r.mean()):.2f}, max {int(r.max())}")
@@ -729,9 +796,10 @@ def phase_fine(out):
     """The fine regional world (:func:`fine_world`), whose ring radius takes
     the large build of B1, B4 and B5: ``diag`` for 8 steps, kernel path
     against plain (final ws/wd bit-equal); the coupled step
-    (``prepare_mask`` + ``physics``, B2 + B4) over the same steps against
+    (``prepare_mask`` + ``physics``, B3 + B4) over the same steps against
     plain; B1, B4 and B5 alone on one step, bit for bit, at ``diag``'s NN
-    (B1 timed) and at the coupled step's (B4 timed)."""
+    (B1 timed) and at the coupled step's (B4 timed); the fused distance
+    and B3 at k = 93 (:func:`fused_regional`)."""
     import torch
     from seabreeze_param_tpu_torch.core.state import TriggerState
     from seabreeze_param_tpu_torch.coupling import CoupledTrigger
@@ -768,7 +836,7 @@ def phase_fine(out):
     zero_launches()
     cstate, couts, cms = drive(None)
     claunches = {n: c for n, c in read_launches().items() if c}
-    if claunches != {"ring_trigger_padded": T, "pass2_min": T}:
+    if claunches != {"ring_trigger_padded": T, dist_kernel(): T}:
         raise AssertionError(f"fine coupled launches {claunches}")
     pstate, pouts, cpms = drive(False)
     cworst = 0.0
@@ -787,6 +855,7 @@ def phase_fine(out):
     alone = ring_alone(world, nn, "fine")
     coupled = ring_alone(world, cnn, f"fine NN={cnn}", time_b1=False,
                          time_b4=True)
+    b3 = fused_regional(world, "fine")
     smi = nvidia_smi()
     log(f"# fine regional {nlat}x{nlon} at {FINE_SPACING} deg (k="
         f"{alone['k']}, NN={nn}: the ring kernels' large build), {smi}: "
@@ -801,24 +870,26 @@ def phase_fine(out):
         f"plain on one step at NN={nn} and NN={cnn}; B1 at NN={nn} "
         f"{fmt_timing(alone['b1'])} (plain: events around calls); f "
         f"{alone['b1']['f']:.4f}; {fmt_radii(alone['radii'])}; B4 at "
-        f"NN={cnn} {fmt_timing(coupled['b4'])}")
+        f"NN={cnn} {fmt_timing(coupled['b4'])}; {fmt_b3(b3)}")
     out.update(launches=dg["launches"], coupled_launches=claunches, nn=nn,
                coupled_nn=cnn, large_from=large_from,
                ms_per_step=dg["ms_per_step"],
                plain_ms_per_step=dg["plain_ms_per_step"],
                coupled_ms_per_step=cms, coupled_plain_ms_per_step=cpms,
-               b1=alone["b1"], b4=coupled["b4"])
+               b1=alone["b1"], b4=coupled["b4"], b3=b3)
 
 
 def phase_km(out):
     """The 1 km world (:func:`km_world`), whose probe takes the ring radius
     to 243: ``diag`` for 4 steps, kernel path against plain (final ws/wd
-    bit-equal; B1 launched 4 times, B2 5); B1, B4 and B5 alone on one step
-    at ``diag``'s NN, bit for bit, B1 timed."""
+    bit-equal; B1 launched 4 times, the distance kernel 5); B1, B4 and B5
+    alone on one step at ``diag``'s NN, bit for bit, B1 timed; the fused
+    distance and B3 at k = 155 (:func:`fused_regional`)."""
     world = km_world()
     grid = world[0]
     dg = regional_diag(world, "1 km", 243)
     alone = ring_alone(world, dg["nn"], "1 km")
+    b3 = fused_regional(world, "1 km")
     nlat, nlon = grid.shape
     log(f"# 1 km regional {nlat}x{nlon} at {KM_SPACING} deg (k="
         f"{alone['k']}, NN={dg['nn']}), {nvidia_smi()}: diag T={dg['T']} "
@@ -828,10 +899,12 @@ def phase_km(out):
         f"bit-equal); sb missing fraction {dg['missing']:.4f}, nonzero "
         f"triggers {dg['triggers']}; B1, B4, B5 bit-equal to plain on one "
         f"step; B1 {fmt_timing(alone['b1'])} (plain: events around calls); "
-        f"f {alone['b1']['f']:.4f}; {fmt_radii(alone['radii'])}")
+        f"f {alone['b1']['f']:.4f}; {fmt_radii(alone['radii'])}; "
+        f"{fmt_b3(b3)}")
     out.update(launches=dg["launches"], nn=dg["nn"],
                ms_per_step=dg["ms_per_step"],
-               plain_ms_per_step=dg["plain_ms_per_step"], b1=alone["b1"])
+               plain_ms_per_step=dg["plain_ms_per_step"], b1=alone["b1"],
+               b3=b3)
 
 
 def nvidia_smi():
@@ -866,6 +939,16 @@ def zero_launches():
 
 def read_launches():
     return {name: fn.launches for name, fn in kernel_wrappers().items()}
+
+
+def dist_kernel():
+    """The wrapper (a name of :func:`kernel_wrappers`) that the card's
+    default distance, ``impl='auto'``, launches: B3 for ``'fused'``, B2 for
+    ``'hybrid'``.  Read from the package that runs, so the path phases hold
+    either package to its own choice."""
+    from seabreeze_param_tpu_torch.ops.distance import resolve_impl
+    return {"fused": "min_haversine",
+            "hybrid": "pass2_min"}[resolve_impl("auto", "cuda")]
 
 
 def bit_equal(got, ref, what):
@@ -911,20 +994,22 @@ def phase_padded(name, out):
     # B3: both passes fused, against its plain version and the hybrid
     tabs = device_tables(grid, k, dev)
     cpad = pad_coast(get_edges(lsm, ci[0]), k)
-    err = bit_equal(min_haversine_param_cuda(cpad, *tabs, k),
-                    min_haversine_param_from_padded(cpad, *tabs, k),
+
+    def b3():
+        return min_haversine_param_cuda(cpad, *tabs, k,
+                                        monotone=tabs.monotone)
+
+    amin = b3()
+    err = bit_equal(amin, min_haversine_param_from_padded(cpad, *tabs, k),
                     f"B3 {name}")
-    nwin, n = 2 * k + 1, nlat * nlon
+    n = nlat * nlon
     none = "none: no PyTorch call runs a masked min over a separable window"
     res["min_haversine"] = dict(
         max_abs_err=err,
         hybrid_ms=device_ms(lambda: pass2_min_cuda(
             pass1_extrema(cpad, tabs[2], k), tabs[0], tabs[1], k)),
-        **timing(lambda: min_haversine_param_cuda(cpad, *tabs, k),
-                 lambda: min_haversine_param_from_padded(cpad, *tabs, k),
-                 4 * (cpad.numel() + n + (2 * nlat + nlon) * nwin),
-                 2 * nwin * (nlat + 2 * k) * nlon + 3 * nwin * n,
-                 library_note=none))
+        **timing(b3, lambda: min_haversine_param_from_padded(cpad, *tabs, k),
+                 *b3_bound(cpad, amin, k), library_note=none))
 
     # B4 at seeding, a plain step and a refresh; B5 on the same step
     cd = pipe.distance_field(lsm, ci[0])
@@ -1035,9 +1120,10 @@ def phase_coupling(out):
     zero_launches()
     kstate, kouts, masks, kms = drive(None)
     launches = read_launches()
-    if launches["ring_trigger_padded"] != S or launches["pass2_min"] != S:
+    if (launches["ring_trigger_padded"] != S
+            or launches[dist_kernel()] != S):
         raise AssertionError(f"coupling launches {launches}, want B4 and "
-                             f"B2 {S} times each")
+                             f"{dist_kernel()} {S} times each")
     pstate, pouts, _, pms = drive(False)
     if read_launches() != launches:
         raise AssertionError("coupling: the plain path launched a kernel")
@@ -1084,8 +1170,10 @@ def phase_coupling(out):
 
 
 def phase_fused(out):
-    """``TriggerPipeline(distance_impl='fused').run`` (B3 + B1) for the 8
-    coupled steps against the default pipeline (B2 + B1)."""
+    """The two distances of ``TriggerPipeline.run`` (B1 for the ring) for
+    the 8 coupled steps, each launching its own kernel: ``'fused'`` (B3)
+    against ``'hybrid'`` (torch pass 1 + B2), the first step's distance and
+    the outputs bit-equal."""
     import torch
     from seabreeze_param_tpu_torch.core.state import TriggerState
     from seabreeze_param_tpu_torch.models.pipeline import TriggerPipeline
@@ -1094,10 +1182,10 @@ def phase_fused(out):
     grid, d = coupled_inputs(dev)
     nlat, nlon = grid.shape
     S = len(COUPLED_STEPS)
-    fused = TriggerPipeline(grid, device=dev, distance_impl="fused")
-    default = TriggerPipeline(grid, device=dev)
-    bit_equal(fused.distance_field(d["lsm"], d["ci"][0]),
-              default.distance_field(d["lsm"], d["ci"][0]),
+    pipes = {impl: TriggerPipeline(grid, device=dev, distance_impl=impl)
+             for impl in ("fused", "hybrid")}
+    bit_equal(pipes["fused"].distance_field(d["lsm"], d["ci"][0]),
+              pipes["hybrid"].distance_field(d["lsm"], d["ci"][0]),
               "fused distance, first step")
 
     def run(pipe):
@@ -1109,27 +1197,29 @@ def phase_fused(out):
         torch.cuda.synchronize()
         return r, (time.perf_counter() - t0) / S * 1e3
 
-    run(fused)                                  # warm-up
-    zero_launches()
-    (fstate, fouts), fms = run(fused)
-    launches = read_launches()
-    if (launches["min_haversine"] != S
-            or launches["ring_trigger_stacked"] != S
-            or launches["pass2_min"] != 0):
-        raise AssertionError(f"fused launches {launches}, want B3 and B1 "
-                             f"{S} times each, B2 none")
-    (dstate, douts), dms = run(default)
+    res, launches, ms = {}, {}, {}
+    for impl, kern in (("fused", "min_haversine"), ("hybrid", "pass2_min")):
+        run(pipes[impl])                        # warm-up
+        zero_launches()
+        res[impl], ms[impl] = run(pipes[impl])
+        launches[impl] = {n: c for n, c in read_launches().items() if c}
+        want = {kern: S, "ring_trigger_stacked": S}
+        if launches[impl] != want:
+            raise AssertionError(f"{impl} run launches {launches[impl]}, "
+                                 f"want {want}")
+    (fstate, fouts), (hstate, houts) = res["fused"], res["hybrid"]
     worst = check_fields({k: o.cpu() for k, o in fouts.items()},
-                         {k: o.cpu() for k, o in douts.items()},
+                         {k: o.cpu() for k, o in houts.items()},
                          "fused run per-step outputs")
-    check_fields(final_fields(fstate), final_fields(dstate),
+    check_fields(final_fields(fstate), final_fields(hstate),
                  "fused run final state", bit_state=("windspeed", "winddir"))
-    log(f"# fused distance global025 ({S} steps, moving ice): first cdist "
-        f"bit-equal to the default pipeline's; run ms/step fused (B3+B1) "
-        f"{fms:.3f}, default (B2+B1) {dms:.3f}; launches {launches}; "
-        f"outputs match (max |diff| {worst:.3g}, final ws/wd bit-equal)")
-    out.update(launches=launches, ms_per_step=fms,
-               default_ms_per_step=dms)
+    log(f"# fused and hybrid distance, global025 ({S} steps, moving ice): "
+        f"first cdist bit-equal; run ms/step fused (B3+B1) "
+        f"{ms['fused']:.3f}, hybrid (B2+B1) {ms['hybrid']:.3f}; launches "
+        f"{launches}; outputs match (max |diff| {worst:.3g}, final ws/wd "
+        f"bit-equal)")
+    out.update(launches=launches, ms_per_step=ms["fused"],
+               hybrid_ms_per_step=ms["hybrid"])
 
 
 def phase_dummy(out):
@@ -1148,7 +1238,7 @@ def phase_dummy(out):
     kms = (time.perf_counter() - t0) / steps * 1e3
     launches = read_launches()
     if (launches["ring_trigger_padded"] != steps
-            or launches["pass2_min"] != steps):
+            or launches[dist_kernel()] != steps):
         raise AssertionError(f"dummy model launches {launches}")
     pfin, psb = dummy_model.run(steps=steps, use_kernels=False)
     shape = (steps, dummy_model.NY, dummy_model.NX)
@@ -1277,9 +1367,9 @@ def outputs_sharded_close(got, ref, what):
 
 def phase_sharded(out):
     """The decomposed run at global 0.25 deg on a 2 x 4 mesh of the card,
-    16 steps of the main world: overlapped on the kernel path (B6 + B2 +
+    16 steps of the main world: overlapped on the kernel path (B6 + B3 +
     B1) against the single-device kernel run (sharded tolerance) and its
-    own plain path (final wind bit-equal), then basic (B6 + B2 + B4)
+    own plain path (final wind bit-equal), then basic (B6 + B3 + B4)
     bit-equal to overlapped."""
     import torch
     from seabreeze_param_tpu_torch.core.state import TriggerState
@@ -1317,10 +1407,10 @@ def phase_sharded(out):
     nn, k = single.nn_max, single.k
     want = {"overlap": {"halo_exchange": 3 + 2 * T,
                         "ring_trigger_stacked": mesh.size * T,
-                        "pass2_min": mesh.size * T},
+                        dist_kernel(): mesh.size * T},
             "basic": {"halo_exchange": 3 * T,
                       "ring_trigger_padded": mesh.size * T,
-                      "pass2_min": mesh.size * T}}
+                      dist_kernel(): mesh.size * T}}
     res, launches = {}, {}
     for label in ("overlap", "basic", "plain", "single"):
         run(label)                                  # warm-up
@@ -1388,7 +1478,7 @@ def phase_diag_mesh(out):
     meshed, mms = run(mesh=SHARD_MESH)
     launches = {n: c for n, c in read_launches().items() if c}
     want = {"halo_exchange": 3 + 2 * T, "ring_trigger_stacked": 8 * T,
-            "pass2_min": 8 * T + 1}                 # + the ring probe
+            dist_kernel(): 8 * T + 1}               # + the ring probe
     if launches != want:
         raise AssertionError(f"diag mesh launches {launches}, want {want}")
     run()                                            # warm-up
@@ -1421,7 +1511,7 @@ def phase_dummy_sharded(out):
     kms = (time.perf_counter() - t0) / steps * 1e3
     launches = {n: c for n, c in read_launches().items() if c}
     want = {"halo_exchange": 4 + steps, "ring_trigger_stacked": 8 * steps,
-            "pass2_min": 8}
+            dist_kernel(): 8}
     if launches != want:
         raise AssertionError(f"dummy sharded launches {launches}, want "
                              f"{want}")
@@ -1618,7 +1708,7 @@ def phase_driver(out):
         kern = driver_run(conf, spent, metrics_file=mfile)
         launches = {n: c for n, c in read_launches().items() if c}
         want = {"ring_trigger_stacked": T,
-                "pass2_min": T + DRIVER_DAYS}           # + a probe per file
+                dist_kernel(): T + DRIVER_DAYS}         # + a probe per file
         if launches != want:
             raise AssertionError(f"driver launches {launches}, want {want}")
         same_run(kern, unbroken, "driver rerun")
@@ -1660,7 +1750,7 @@ def phase_driver(out):
         mesh_launches = {n: c for n, c in read_launches().items() if c}
         mesh_want = {"halo_exchange": DRIVER_DAYS * (3 + 2 * DRIVER_STEPS),
                      "ring_trigger_stacked": 8 * T,
-                     "pass2_min": 8 * T + DRIVER_DAYS}
+                     dist_kernel(): 8 * T + DRIVER_DAYS}
         if mesh_launches != mesh_want:
             raise AssertionError(f"driver mesh launches {mesh_launches}, "
                                  f"want {mesh_want}")
@@ -1757,17 +1847,28 @@ def main():
     src = "seabreeze_param_tpu_torch/csrc/"
     pal = "seabreeze_param_tpu/ops/pallas/"
     keys = ("max_abs_err", "device_ms", "call_ms", "plain_ms", "bound_ms",
-            "bound_by", "share_of_bound", "library_ms", "library", "f", "nn")
+            "bound_by", "share_of_bound", "library_ms", "library", "f", "nn",
+            "k", "hybrid_ms")
     kernels = []
+
+    def dist_row(name, impl):
+        """Launches and path of a distance kernel: the main path's where
+        ``'auto'`` takes it, else the fused phase's run of ``impl``."""
+        if dist_kernel() == name:
+            return main_out["launches"][name], "main path: diag"
+        return (fused["launches"][impl][name],
+                f"TriggerPipeline(distance_impl='{impl}').run")
+
+    b3_meas = {**per_kernel("min_haversine"), "fine": fine["b3"],
+               "km": km["b3"]}
     for name, cu, replaces, meas, launches, path in (
             ("pass2_min", "pass2_min.cu", "distance_kernel.py:233", b2,
-             main_out["launches"]["pass2_min"], "main path: diag"),
+             *dist_row("pass2_min", "hybrid")),
             ("ring_trigger_stacked", "ring_trigger.cu", "ring_kernel.py:694",
-             b1, main_out["launches"]["ring_trigger"], "main path: diag"),
+             b1, main_out["launches"]["ring_trigger_stacked"],
+             "main path: diag"),
             ("min_haversine", "min_haversine.cu", "distance_kernel.py:93",
-             per_kernel("min_haversine"),
-             fused["launches"]["min_haversine"],
-             "TriggerPipeline(distance_impl='fused').run"),
+             b3_meas, *dist_row("min_haversine", "fused")),
             ("ring_trigger_padded", "ring_trigger.cu", "ring_kernel.py:837",
              per_kernel("ring_trigger_padded"),
              coupling["launches"]["ring_trigger_padded"],

@@ -5,8 +5,8 @@ the coastline and coast distance from the (moving) sea-ice field, run the
 trigger, and thread the state forward (reference ``__init__.py:219-245``).
 The JAX ``lax.scan`` becomes a Python loop over T that enqueues device work
 without waiting for it.  With the kernels (the default on CUDA), each step
-of :meth:`TriggerPipeline.run` launches kernel B2 (or B3, with
-``distance_impl='fused'``) for the distance and kernel B1 for the ring
+of :meth:`TriggerPipeline.run` launches kernel B3 (or B2, with
+``distance_impl='hybrid'``) for the distance and kernel B1 for the ring
 search and trigger, which writes slot t of preallocated (T, nlat, nlon)
 stacks; with ``use_kernels=False`` the plain torch ops run instead and their
 fields are copied into the same stacks.  :meth:`TriggerPipeline.step`, the
@@ -48,8 +48,8 @@ class TriggerPipeline:
     versions for CPU tensors); False: the plain path, which exists to
     compare the kernels with it on the card.
     ``distance_impl`` — the coast-distance gather-min
-    (``ops.distance.coast_distance``): ``'auto'`` (B2 on the card),
-    ``'hybrid'``, ``'fused'`` (B3) or ``'plain'``; ``use_kernels=False``
+    (``ops.distance.coast_distance``): ``'auto'`` (B3 on the card),
+    ``'hybrid'`` (B2), ``'fused'`` (B3) or ``'plain'``; ``use_kernels=False``
     makes it ``'plain'``.
     """
 

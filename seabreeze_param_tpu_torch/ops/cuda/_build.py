@@ -39,12 +39,15 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 
 #: C signatures of the launchers; each returns ``cudaGetLastError()``
-#: (``sbz_ring_limits``, which reads two constants, returns 0).
+#: (``sbz_ring_limits`` and ``sbz_min_haversine_limits``, which read
+#: constants, return 0).
 SIGNATURES = {
     # mmin, sdphi2, po, out, h, w, k, stream
     "sbz_pass2_min": (_P, _P, _P, _P, _I, _I, _I, _P),
-    # cpad, sdphi2, po, sdlam2, out, h, w, k, stream
-    "sbz_min_haversine": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
+    # cpad, sdphi2, po, sdlam2, col_mono, out, h, w, k, stream
+    "sbz_min_haversine": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+    # &max_k: the widest k the launcher above takes
+    "sbz_min_haversine_limits": (_P,),
     # t0_pad, cd_pad, cd, ws_new, wd_new, ws_state, wd_state, ever,
     # sb_buf, ws_buf, wd_buf, h, w, nn, step, is_first, upd, row_offset,
     # nlat_total, skip_last_row, maxdist, thresh_wind, thresh_winddir,

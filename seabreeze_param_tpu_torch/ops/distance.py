@@ -135,22 +135,67 @@ def min_haversine_param_from_padded(cpad, sdphi2, po, sdlam2, k: int):
     return pass2_min(pass1_extrema(cpad, sdlam2, k), sdphi2, po, k)
 
 
+def window_monotone(table, k: int):
+    """(n,) bool: the rows of ``table`` (n, 2k+1) that do not increase from
+    either end of the window to its centre tap k (non-increasing over taps
+    0..k, non-decreasing over k..2k).
+
+    Where the row of sdlam2 for a column has it, pass 1's masked minimum
+    there is the smaller of the row's values at the nearest coast tap at or
+    left of the centre and at or right of it, which kernel B3 finds by a
+    scan of coast bits instead of 2k+1 taps.  A global uniform grid's every
+    column has it, a regional grid's every column but those within k of its
+    seam (where the periodic wrap jumps by the domain's width)."""
+    t = np.asarray(table)
+    return ((np.diff(t[:, :k + 1], axis=1) <= 0).all(axis=1)
+            & (np.diff(t[:, k:], axis=1) >= 0).all(axis=1))
+
+
+class DistanceTables(tuple):
+    """``(sdphi2, po, sdlam2)`` as float32 tensors on one device, with
+    ``monotone``: a uint8 tensor of length w, nonzero where the column's
+    row of sdlam2 has the property of :func:`window_monotone`.  Unpacks as
+    the three tables."""
+
+    def __new__(cls, sdphi2, po, sdlam2, monotone):
+        tabs = super().__new__(cls, (sdphi2, po, sdlam2))
+        tabs.monotone = monotone
+        return tabs
+
+    def select(self, rows, cols):
+        """The tables of a block of the field: the rows ``rows`` of sdphi2
+        and po and the columns ``cols`` (rows of sdlam2, with their flags),
+        each a slice or an index tensor."""
+        def pick(t, idx):
+            return t[idx] if isinstance(idx, slice) else t.index_select(0, idx)
+        sdphi2, po, sdlam2 = self
+        return DistanceTables(pick(sdphi2, rows), pick(po, rows),
+                              pick(sdlam2, cols), pick(self.monotone, cols))
+
+
 def device_tables(grid: Grid, k: int, device):
-    """:func:`distance_tables` as float32 tensors on ``device``."""
-    return tuple(torch.as_tensor(t, device=device)
-                 for t in distance_tables(grid, k))
+    """:func:`distance_tables` as a :class:`DistanceTables` on ``device``,
+    its monotone flags checked here, once."""
+    sdphi2, po, sdlam2 = distance_tables(grid, k)
+    flags = window_monotone(sdlam2, k).astype(np.uint8)
+    return DistanceTables(*(torch.as_tensor(t, device=device)
+                            for t in (sdphi2, po, sdlam2, flags)))
 
 
 IMPLS = ("auto", "hybrid", "fused", "plain")
 
 
 def resolve_impl(impl: str, device) -> str:
-    """``'auto'`` is ``'hybrid'`` on the card and ``'plain'`` elsewhere."""
+    """``'auto'`` is ``'fused'`` on the card and ``'plain'`` elsewhere.
+
+    The JAX package takes the hybrid on the TPU, where its fused kernel
+    lost; on an H100 B3 is ahead of the hybrid's torch pass 1 + B2 end to
+    end on every grid measured, in pairs of fresh processes (PERF.md)."""
     if impl not in IMPLS:
         raise ValueError(f"distance impl {impl!r}: want one of {IMPLS}")
     if impl != "auto":
         return impl
-    return "hybrid" if torch.device(device).type == "cuda" else "plain"
+    return "fused" if torch.device(device).type == "cuda" else "plain"
 
 
 def coast_distance(coast, lsm, grid: Grid, maxdist: float = 180.0, *,
@@ -163,9 +208,9 @@ def coast_distance(coast, lsm, grid: Grid, maxdist: float = 180.0, *,
     looping over steps builds them once.  ``impl`` — the gather-min:
 
     * ``'hybrid'``: torch pass 1, then kernel B2 for pass 2;
-    * ``'fused'``: kernel B3, both passes per tile;
+    * ``'fused'``: kernel B3, both passes in one kernel;
     * ``'plain'``: both passes as torch ops;
-    * ``'auto'`` (default): ``'hybrid'`` on the card, ``'plain'`` on the
+    * ``'auto'`` (default): ``'fused'`` on the card, ``'plain'`` on the
       CPU.
 
     The JAX package's names: ``'xla'`` is ``'plain'``, ``'pallas'`` is
@@ -190,7 +235,9 @@ def coast_distance_from_padded(cpad, lsm, tables, k: int,
     impl = resolve_impl(impl, cpad.device)
     if impl == "fused":
         from .cuda.distance_kernel import min_haversine_param_cuda
-        amin = min_haversine_param_cuda(cpad, sdphi2, po, sdlam2, k)
+        amin = min_haversine_param_cuda(
+            cpad, sdphi2, po, sdlam2, k,
+            monotone=getattr(tables, "monotone", None))
     elif impl == "hybrid":
         from .cuda.distance_kernel import pass2_min_cuda
         amin = pass2_min_cuda(pass1_extrema(cpad, sdlam2, k), sdphi2, po, k)

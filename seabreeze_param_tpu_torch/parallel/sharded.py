@@ -18,13 +18,13 @@ distance gather and the nn-wide ring inputs are computed on the apron
 instead of exchanged, and theta with an nn-wide apron (t0 is elementwise
 and the z / lsm / smod aprons are static, exchanged once per run).  The
 exchanges start before the step's wind read and finish after it.  The
-kernel path runs per shard kernel B2 (B3 with ``distance_impl='fused'``)
+kernel path runs per shard kernel B3 (B2 with ``distance_impl='hybrid'``)
 on the apron-extended block and kernel B1 through a per-shard
 ``StackedScan``.
 
 **Basic.**  Three exchanges per step (mask 1-wide, coast k-wide with zero
 lat fill, the ``[t0, cdist]`` ring inputs nn-wide in one launch), for
-shards too small for the apron; kernels B2 and B4.  Unlike the JAX
+shards too small for the apron; kernels B3 and B4.  Unlike the JAX
 package, whose DMA exchange served the basic structure only, the kernel
 exchange here serves both.
 
@@ -160,7 +160,6 @@ class ShardedPipeline:
         # once per run: static aprons and the ext blocks' tables
         z_ext, lsm_ext, smod_ext = (self._exchange(f, nn, "clamp", False)
                                     for f in (z_s, lsm_s, smods))
-        sdphi2_g, po_g, sdlam2_g = self.tables
         ext_tables, edges = [], []
         for s in range(mesh.size):
             r0, c0 = self._offsets(s)
@@ -168,9 +167,7 @@ class ShardedPipeline:
             ridx = gr.clamp(0, self.nlat_pad - 1)
             cidx = torch.arange(c0 - nn, c0 + w + nn, device=dev) % (
                 self.grid_padded.nlon)
-            ext_tables.append((sdphi2_g.index_select(0, ridx),
-                               po_g.index_select(0, ridx),
-                               sdlam2_g.index_select(0, cidx)))
+            ext_tables.append(self.tables.select(ridx, cidx))
             edges.append(((gr < 0)[:, None], (gr >= self.nlat_pad)[:, None]))
 
         def distance_ext(mask_pads):
@@ -249,12 +246,11 @@ class ShardedPipeline:
         exact = params.exact_lon_indexing
         h, w, k = self.h, self.w, self.k
         theta_s, u_s, v_s, ci_s = xs
-        sdphi2_g, po_g, sdlam2_g = self.tables
         tables = []
         for s in range(mesh.size):
             r0, c0 = self._offsets(s)
-            tables.append((sdphi2_g[r0:r0 + h], po_g[r0:r0 + h],
-                           sdlam2_g[c0:c0 + w]))
+            tables.append(self.tables.select(slice(r0, r0 + h),
+                                             slice(c0, c0 + w)))
 
         def distance(ci):
             masks = [make_mask(lsm, c) for lsm, c in zip(lsm_s, ci)]

@@ -284,8 +284,9 @@ def test_pipeline_step_matches_jax(small_case, with_ci):
 
 def test_step_distance_impls_agree(small_case):
     """``distance_impl``: 'fused' and 'hybrid' take their kernels' plain
-    versions on the CPU, 'auto' resolves to 'plain' there, so all four give
-    one distance field; a bad name is refused."""
+    versions on the CPU, 'auto' resolves to 'plain' there (and to 'fused'
+    on the card), so all four give one distance field; a bad name is
+    refused."""
     c = small_case
     _, tg = _grids(c)
     lsm, ci = (torch.as_tensor(a) for a in (c["lsm"], c["ci_t"][2]))
@@ -295,7 +296,7 @@ def test_step_distance_impls_agree(small_case):
     for f in fields[1:]:
         torch.testing.assert_close(f, fields[0], rtol=0, atol=0)
     assert tdist.resolve_impl("auto", "cpu") == "plain"
-    assert tdist.resolve_impl("auto", "cuda") == "hybrid"
+    assert tdist.resolve_impl("auto", "cuda") == "fused"
     with pytest.raises(ValueError, match="pallas"):
         TriggerPipeline(tg, device="cpu",
                         distance_impl="pallas").distance_field(lsm, ci)

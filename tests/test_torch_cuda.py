@@ -8,7 +8,8 @@ repo's conftest (which imports JAX) is skipped:
 Without a CUDA device every test skips: the kernels have no CPU mode.
 Grids include a ragged tile edge (37 x 70) and a grid smaller than one
 tile (10 x 20), whose wrap seam pushes the ring radius up.  Kernels B1 and
-B2 carry ``TriggerPipeline.run``; B3 the fused distance, B4 the per-step
+B3 carry ``TriggerPipeline.run`` (B2 its hybrid distance), B3 also takes
+every radius up to ``min_haversine_limits`` (354), B4 the per-step
 coupling path, B5 the ring search alone, B6 the halo exchange of the
 decomposed run (``ShardedPipeline``), on ragged, 1-wide and 64-shard
 meshes.  B1, B4 and B5 run ring radii up to the widest their kernels take
@@ -27,14 +28,14 @@ from seabreeze_param_tpu_torch.coupling import CoupledTrigger
 from seabreeze_param_tpu_torch.models.pipeline import TriggerPipeline
 from seabreeze_param_tpu_torch.ops.coastline import get_edges
 from seabreeze_param_tpu_torch.ops.cuda.distance_kernel import (
-    min_haversine_param_cuda, pass2_min_cuda)
+    min_haversine_limits, min_haversine_param_cuda, pass2_min_cuda)
 from seabreeze_param_tpu_torch.ops.cuda.halo_kernel import halo_exchange_cuda
 from seabreeze_param_tpu_torch.ops.cuda.ring_kernel import (
     StackedScan, ring_limits, ring_thc_cuda_padded, ring_trigger_cuda_padded,
     ring_trigger_cuda_stacked)
 from seabreeze_param_tpu_torch.ops.distance import (
-    device_tables, min_haversine_param_from_padded, pad_coast, pass1_extrema,
-    pass2_min)
+    DistanceTables, device_tables, min_haversine_param_from_padded, pad_coast,
+    pass1_extrema, pass2_min, window_monotone)
 from seabreeze_param_tpu_torch.ops.ring_search import (ring_quantities,
                                                        ring_thc_from_padded)
 from seabreeze_param_tpu_torch.ops.trigger import (cadence, prepare_step,
@@ -403,17 +404,19 @@ def test_stacked_scan_global025_matches_plain(dev):
 def test_diag_kernel_path_matches_plain_path(name, dev):
     """Three steps from tt=14 across the tt=15 refresh, ice appearing at
     step 1: per-step fields within 2e-5/2e-4, final wind state bit-equal,
-    each kernel launched once per step (B2 also once for the probe)."""
+    each kernel launched once per step (B3, the card's default distance,
+    also once for the probe)."""
     grid, (lsm, z, std, pres, theta, u, v, ci) = _world(name)
     rng = np.random.default_rng(0)
     ws = (5 + rng.random(lsm.shape)).astype(np.float32)
     wd = (360 * rng.random(lsm.shape) - 180).astype(np.float32)
     args = (14, lsm, z, std, grid.lon, grid.lat, pres, u, v, theta, ci)
     kw = dict(ws=ws, wd=wd, thc=np.zeros_like(ws), full_output=True)
-    p0, r0 = pass2_min_cuda.launches, ring_trigger_cuda_stacked.launches
+    p0, r0 = (min_haversine_param_cuda.launches,
+              ring_trigger_cuda_stacked.launches)
     kern = diag(*args, device=dev, **kw)
     assert ring_trigger_cuda_stacked.launches - r0 == 3
-    assert pass2_min_cuda.launches - p0 == 4
+    assert min_haversine_param_cuda.launches - p0 == 4
     plain = diag(*args, device=dev, use_kernels=False, **kw)
     for key in ("sb_con", "t0", "windspeed", "winddir"):
         _close(torch.as_tensor(kern[5][key]), torch.as_tensor(plain[5][key]),
@@ -469,10 +472,10 @@ def test_launchers_reject_oversized_shared_memory(dev):
 
 @pytest.mark.cuda
 def test_new_launchers_reject_oversized_shared_memory(dev):
-    """B3 at a radius of 1000 cells needs more shared memory than a block
-    may hold, and B4/B5 at NN = 2048 run past their widest radius: each
-    wrapper raises, counts no launch, and the next good launch is not
-    blamed."""
+    """B3 one past its widest radius (``min_haversine_limits``: its shared
+    memory grows linearly in k) and B4/B5 at NN = 2048, past theirs: each
+    wrapper raises ``ValueError`` naming the limit before launching,
+    counts no launch, and the next good launch is not blamed."""
     def zeros(*shape):
         return torch.zeros(shape, device=dev)
 
@@ -480,11 +483,14 @@ def test_new_launchers_reject_oversized_shared_memory(dev):
                       ring_trigger_cuda_padded.launches,
                       ring_thc_cuda_padded.launches)
     before = counts()
-    h, w, k = 10, 16, 1000                    # B3: ~17 MB per block
-    with pytest.raises(RuntimeError, match="cudaError_t"):
-        min_haversine_param_cuda(zeros(h + 2 * k, w + 2 * k),
-                                 zeros(h, 2 * k + 1), zeros(h, 2 * k + 1),
-                                 zeros(w, 2 * k + 1), k)
+    max_k = min_haversine_limits()
+    assert max_k >= 310                       # a 0.5 km grid at 54 N
+    for k in (max_k + 1, 1000):
+        h, w = 10, 16
+        with pytest.raises(ValueError, match=f"k <= {max_k}"):
+            min_haversine_param_cuda(zeros(h + 2 * k, w + 2 * k),
+                                     zeros(h, 2 * k + 1), zeros(h, 2 * k + 1),
+                                     zeros(w, 2 * k + 1), k)
     h, w, nn = 8, 8, ring_limits()[1] + 1     # B4, B5: past the limit
     pads = (zeros(h + 2 * nn, w + 2 * nn), zeros(h + 2 * nn, w + 2 * nn))
     with pytest.raises(ValueError, match=f"NN <= {nn - 1}"):
@@ -506,21 +512,104 @@ def test_new_launchers_reject_oversized_shared_memory(dev):
 @pytest.mark.parametrize("radius", ["k", "zero"])
 def test_min_haversine_kernel_bit_equal_to_plain(name, radius, dev):
     """B3 against its plain version, bit for bit, at the grid's k and at
-    k = 0 (a one-tap window); and against the hybrid (torch pass 1 + B2)."""
+    k = 0 (a one-tap window), with the tables' monotone flags and without
+    them (the kernel's loop over the set coast bits); and against the
+    hybrid (torch pass 1 + B2)."""
     grid, (lsm, *_, ci) = _world(name)
     k = TriggerPipeline(grid, device=dev).k if radius == "k" else 0
     tabs = device_tables(grid, k, dev)
     coast = get_edges(torch.as_tensor(lsm, device=dev),
                       torch.as_tensor(ci[1], device=dev))
     cpad = pad_coast(coast, k)
-    before = min_haversine_param_cuda.launches
-    got = min_haversine_param_cuda(cpad, *tabs, k)
-    assert min_haversine_param_cuda.launches == before + 1
-    torch.testing.assert_close(
-        got, min_haversine_param_from_padded(cpad, *tabs, k), rtol=0, atol=0)
+    ref = min_haversine_param_from_padded(cpad, *tabs, k)
+    for mono in (tabs.monotone, None):
+        before = min_haversine_param_cuda.launches
+        got = min_haversine_param_cuda(cpad, *tabs, k, monotone=mono)
+        assert min_haversine_param_cuda.launches == before + 1
+        torch.testing.assert_close(got, ref, rtol=0, atol=0)
     torch.testing.assert_close(
         got, pass2_min_cuda(pass1_extrema(cpad, tabs[2], k), tabs[0],
                             tabs[1], k), rtol=0, atol=0)
+
+
+#: B3's radii: the small builds' (0, 1, 6, 15), the last and first k the
+#: first design's shared memory held and refused (88, 89), the fine and
+#: 1 km worlds' (93, 155) and a 0.5 km grid's at 54 N (310); the widest
+#: the kernel takes is added in the test.
+B3_RADII = (0, 1, 6, 15, 88, 89, 93, 155, 310)
+#: name -> (nlat, nlon, global lon axis, coast): a field smaller than one
+#: band (10 x 20), exactly one band of 32 columns, a ragged band edge
+#: (37 x 70), a row pitch no multiple of 16 bytes with the field starting
+#: one float past a 16-byte boundary (21 x 45), the periodic seam with
+#: coast in both edge columns, no coast, all coast, and one coast cell at
+#: each corner of the 32-column bands.
+B3_CASES = {
+    "subtile": (10, 20, True, "random"),
+    "one_band": (24, 32, False, "random"),
+    "ragged": (37, 70, False, "random"),
+    "misaligned": (21, 45, True, "random"),
+    "seam": (30, 64, True, "seam"),
+    "none": (17, 40, True, "none"),
+    "all": (17, 40, False, "all"),
+    "corners": (33, 96, False, "corners"),
+}
+
+
+def _b3_coast(nlat, nlon, kind, rng):
+    c = np.zeros((nlat, nlon), np.float32)
+    if kind == "random":
+        c[rng.random((nlat, nlon)) < 0.04] = 1.0
+    elif kind == "seam":
+        c[nlat // 3, 0] = c[2 * nlat // 3, nlon - 1] = 1.0
+    elif kind == "all":
+        c[:] = 1.0
+    elif kind == "corners":
+        for x in range(0, nlon, 32):
+            for y, xx in ((0, x), (0, x + 31), (nlat - 1, x),
+                          (nlat - 1, x + 31), (nlat // 2, x + 31)):
+                c[y, min(xx, nlon - 1)] = 1.0
+    return c
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(B3_CASES))
+@pytest.mark.parametrize("k", B3_RADII + ("max",))
+def test_min_haversine_every_radius(case, k, dev):
+    """B3 bit-equal to its plain version at every radius up to the widest
+    it takes (the first design refused k >= 89), on sub-band, one-band,
+    ragged and misaligned fields, the periodic seam, no coast, all coast
+    and coast at the band corners.  Three tables each: a grid's with its
+    monotone flags (pass 1 by the nearest coast bit each side, bar a
+    regional grid's columns within k of its seam), the same without flags,
+    and a random table that has the property nowhere (its flags all
+    zero)."""
+    k = min_haversine_limits() if k == "max" else k
+    nlat, nlon, glob, kind = B3_CASES[case]
+    rng = np.random.default_rng(k)
+    lat = np.linspace(60.0, 20.0, nlat).astype(np.float32)
+    lon = (np.arange(nlon) * (360.0 / nlon if glob else 0.02)).astype(
+        np.float32)
+    tabs = device_tables(Grid(lon=lon, lat=lat), k, dev)
+    noisy = [torch.as_tensor(rng.random((n, 2 * k + 1), np.float32),
+                             device=dev) for n in (nlat, nlat, nlon)]
+    rough = DistanceTables(*noisy, torch.as_tensor(window_monotone(
+        noisy[2].cpu().numpy(), k).astype(np.uint8), device=dev))
+    assert k < 2 or not rough.monotone.any()
+    coast = torch.as_tensor(_b3_coast(nlat, nlon, kind, rng), device=dev)
+    cpad = pad_coast(coast, k)
+    if case == "misaligned":
+        flat = torch.empty(cpad.numel() + 1, device=dev)
+        flat[1:] = cpad.reshape(-1)
+        cpad = flat[1:].view(cpad.shape)
+        assert cpad.data_ptr() % 16 == 4 and cpad.shape[1] % 4 != 0
+    for t, mono in ((tabs, tabs.monotone), (tabs, None),
+                    (rough, rough.monotone)):
+        before = min_haversine_param_cuda.launches
+        got = min_haversine_param_cuda(cpad, *t, k, monotone=mono)
+        assert min_haversine_param_cuda.launches == before + 1
+        torch.testing.assert_close(
+            got, min_haversine_param_from_padded(cpad, *t, k), rtol=0,
+            atol=0)
 
 
 @pytest.mark.cuda
@@ -570,9 +659,9 @@ def test_coupled_paths_match_plain(name, dev):
     """Three coupled steps from tt=14 (prepare_mask + physics, 3-D
     pressure) and three ``TriggerPipeline.step`` calls: kernel path
     against plain path, per-step fields within 2e-5/2e-4, wind state
-    bit-equal, B4 once per step.  The fused distance (B3) gives the
-    default distance field bit for bit, and a fused ``run`` the default
-    run's outputs."""
+    bit-equal, B4 once per step.  The fused distance (B3, the default)
+    gives the hybrid's (torch pass 1 + B2) bit for bit, and a fused
+    ``run`` the hybrid run's outputs."""
     grid, (lsm, z, std, pres, theta, u, v, ci) = _world(name)
     rng = np.random.default_rng(2)
     p3 = (pres[:, None, None] * (1.0 + 0.3 * rng.random(
@@ -605,17 +694,18 @@ def test_coupled_paths_match_plain(name, dev):
                                        getattr(runs[False][i], key), rtol=0,
                                        atol=0)
 
-    fused = TriggerPipeline(grid, device=dev, distance_impl="fused")
-    default = TriggerPipeline(grid, device=dev)
+    fused = TriggerPipeline(grid, device=dev)
+    hybrid = TriggerPipeline(grid, device=dev, distance_impl="hybrid")
     lsm_d, ci_d = torch.as_tensor(lsm, device=dev), torch.as_tensor(
         ci, device=dev)
     torch.testing.assert_close(fused.distance_field(lsm_d, ci_d[1]),
-                               default.distance_field(lsm_d, ci_d[1]),
+                               hybrid.distance_field(lsm_d, ci_d[1]),
                                rtol=0, atol=0)
-    b3 = min_haversine_param_cuda.launches
+    b3, b2 = min_haversine_param_cuda.launches, pass2_min_cuda.launches
     fin = [p.run(TriggerState.zeros(lsm.shape, dev), theta, u, v, lsm, z,
-                 std, pres, ci_t=ci) for p in (fused, default)]
+                 std, pres, ci_t=ci) for p in (fused, hybrid)]
     assert min_haversine_param_cuda.launches - b3 == len(ci)
+    assert pass2_min_cuda.launches - b2 == len(ci)
     for key in fin[1][1]:
         torch.testing.assert_close(fin[0][1][key], fin[1][1][key], rtol=0,
                                    atol=0)

@@ -1,15 +1,15 @@
 #!/usr/bin/env python3
-"""Time the designs of kernels B1, B2, B4, B5 and B6 side by side on one
-NVIDIA GPU.
+"""Time the designs of kernels B1, B2, B3, B4, B5 and B6 side by side on
+one NVIDIA GPU.
 
     python3 tools/compare_designs.py [--against NAME=DIR ...] [--reps N]
-                                     [--only B1,B2,B4,B5,B6]
+                                     [--only B1,B2,B3,B4,B5,B6]
 
 Builds, with one ``nvcc`` per library, all started together:
 
 * ``this``: the port's kernels, ``seabreeze_param_tpu_torch/csrc/
-  {ring_trigger,pass2_min,halo_exchange}.cu`` (``ring_trigger.cu`` also
-  serves B4 and B5);
+  {ring_trigger,pass2_min,min_haversine,halo_exchange}.cu``
+  (``ring_trigger.cu`` also serves B4 and B5);
 * ``NAME`` for each ``--against NAME=DIR``: the same files of another
   checkout (e.g. ``parent=build/parent``, a ``git archive`` of the parent
   commit);
@@ -34,6 +34,27 @@ Builds, with one ``nvcc`` per library, all started together:
   no vc staging); the same with every cell read through L1 and two blocks
   per SM (the first design), with two blocks per SM, with the entering hp
   rows read through L1; and the port's held to two blocks per SM;
+* B3 ``first``: ``tools/designs/min_haversine_variants.cu`` design 0, the
+  port's first design (one block per 16 x 32 tile staging its whole strip;
+  it refuses k >= 89); ``sweep1``, ``sweep1_taps``, ``sweep1_no_early``,
+  ``sweep1_waves1``, ``sweep1_waves4`` and ``sweep1_nbuf2``: design 1, the
+  first sweep (the band's sdlam2 columns in shared memory, the pass-2
+  tables through L1, per-row sdphi2 flags and an early stop of pass 2),
+  and the same with pass 1 by the tap loop instead of the coast bits,
+  with every pass-2 tap in order, with chunks filling the resident block
+  slots once or four times over instead of twice, and with one row in
+  flight per warp instead of three; ``sweep2``, ``sweep2_select``,
+  ``sweep2_waves1``, ``sweep2_waves4`` and ``sweep2_shallow``: design 2,
+  the second sweep (one column a lane at every k, the chunks filling the
+  resident block slots twice over), and the same with BIG and a select
+  per pass-2 tap instead of +inf, with the slots filled once or four times
+  over, and with rows one stage ahead at every k; ``one_column``,
+  ``four_columns``, ``two_columns``, ``waves2_small``, ``waves2`` and
+  ``clocks``: design 3, the port's, with one column a lane at every k, with
+  four where k <= 16, with two up to k = 200 (at the fine and 1 km worlds
+  too), with the resident block slots filled twice over where k <= 32 or
+  at every k, and counting each warp's cycles by part of a stage (printed
+  as shares after the size's timings);
 * B6 ``occupancy4`` and ``unroll2``: ``tools/designs/
   halo_exchange_rows_variants.cu``, the port's design held to 64 registers
   (four blocks per SM against two), and with two 16-byte units per lane in
@@ -61,7 +82,11 @@ smoke's library call (``torch.take`` through an index map), and ``copy``, a
 time of B6's wrapper and of its parts.  Prints ``ptxas`` lines, one line
 per build and size and a JSON line ``{"designs": ...}`` of the device times
 in microseconds (flushed by a write, mean of the two passes; the others
-under ``read`` and ``warm``).  Imports nothing of JAX.
+under ``read`` and ``warm``).  B3 on the coast of ``bench.make_world`` at
+0.25 and 0.1 degrees beside the hybrid distance (torch pass 1 + B2, the
+yardstick ``hybrid``), and on ``chip_smoke.fine_world`` (k = 93) and
+``chip_smoke.km_world`` (k = 155), where neither the parent's build nor
+``first`` runs.  Imports nothing of JAX.
 """
 from __future__ import annotations
 
@@ -94,10 +119,12 @@ def builds(against):
     """{kernel: {name: (source, extra flags)}}."""
     b2 = {"this": (CSRC / "pass2_min.cu", ())}
     b1 = {"this": (CSRC / "ring_trigger.cu", ())}
+    b3 = {"this": (CSRC / "min_haversine.cu", ())}
     b6 = {"this": (CSRC / "halo_exchange.cu", ())}
     for name, root in against.items():
         src = Path(root) / "seabreeze_param_tpu_torch" / "csrc"
         b2[name] = (src / "pass2_min.cu", ())
+        b3[name] = (src / "min_haversine.cu", ())
         b1[name] = (src / "ring_trigger.cu", ())
         b6[name] = (src / "halo_exchange.cu", ())
     win = DESIGNS / "pass2_min_window.cu"
@@ -121,13 +148,34 @@ def builds(against):
     b1["staged_2block"] = (lv, (chains, "-DSBZ_RING_LARGE_BLOCKS=2"))
     b1["unstaged"] = (lv, (chains, "-DSBZ_RING_STAGE=0"))
     b1["image_2block"] = (lv, ("-DSBZ_RING_LARGE_BLOCKS=2",))
+    mh = DESIGNS / "min_haversine_variants.cu"
+    b3["first"] = (mh, ("-DSBZ_MH_DESIGN=0",))
+    one = "-DSBZ_MH_DESIGN=1"
+    b3["sweep1"] = (mh, (one,))
+    b3["sweep1_taps"] = (mh, (one, "-DSBZ_MH_BITS=0"))
+    b3["sweep1_no_early"] = (mh, (one, "-DSBZ_MH_EARLY=0"))
+    b3["sweep1_waves1"] = (mh, (one, "-DSBZ_MH_WAVES=1"))
+    b3["sweep1_waves4"] = (mh, (one, "-DSBZ_MH_WAVES=4"))
+    b3["sweep1_nbuf2"] = (mh, (one, "-DSBZ_MH_NBUF=2"))
+    two = "-DSBZ_MH_DESIGN=2"
+    b3["sweep2"] = (mh, (two,))
+    b3["sweep2_select"] = (mh, (two, "-DSBZ_MH2_SELECT=1"))
+    b3["sweep2_waves1"] = (mh, (two, "-DSBZ_MH2_WAVES=1"))
+    b3["sweep2_waves4"] = (mh, (two, "-DSBZ_MH2_WAVES=4"))
+    b3["sweep2_shallow"] = (mh, (two, "-DSBZ_MH2_DEEP_UP_TO=-1"))
+    b3["one_column"] = (mh, ("-DSBZ_MH3_CPL2_UP_TO=-1",))
+    b3["four_columns"] = (mh, ("-DSBZ_MH3_CPL4_UP_TO=16",))
+    b3["two_columns"] = (mh, ("-DSBZ_MH3_CPL2_UP_TO=200",))
+    b3["waves2_small"] = (mh, ("-DSBZ_MH3_WAVES2_UP_TO=32",))
+    b3["waves2"] = (mh, ("-DSBZ_MH3_WAVES2_UP_TO=100000",))
+    b3["clocks"] = (mh, ("-DSBZ_MH3_CLOCKS=1",))
     rows = DESIGNS / "halo_exchange_rows_variants.cu"
     b6["occupancy4"] = (rows, ("-DSBZ_HALO_MIN_BLOCKS=4",))
     b6["unroll2"] = (rows, ("-DSBZ_HALO_UNROLL=2",))
     gather = DESIGNS / "halo_exchange_gather.cu"
     b6["gather"] = (gather, ())
     b6["gather_rows8"] = (gather, ("-DSBZ_HALO_ROWS=8",))
-    return {"B2": b2, "B1": b1, "B6": b6}
+    return {"B2": b2, "B1": b1, "B3": b3, "B6": b6}
 
 
 def build_all(table):
@@ -153,11 +201,17 @@ def build_all(table):
         lib = ctypes.CDLL(str(path))
         for fn, args in _build.SIGNATURES.items():
             if hasattr(lib, fn):
-                # ring launchers from before their scratch argument
-                old = fn in RING_LAUNCHERS and not hasattr(lib,
-                                                          "sbz_ring_scratch")
-                getattr(lib, fn).argtypes = list(args[:-2] + args[-1:] if old
-                                                 else args)
+                # ring launchers from before their scratch argument, B3's
+                # from before its monotone flags
+                if fn in RING_LAUNCHERS and not hasattr(lib,
+                                                        "sbz_ring_scratch"):
+                    args = args[:-2] + args[-1:]
+                if fn == "sbz_min_haversine":
+                    if hasattr(lib, "sbz_min_haversine_row_flags"):
+                        args = args[:4] + (ctypes.c_void_p,) + args[4:]
+                    elif not hasattr(lib, "sbz_min_haversine_limits"):
+                        args = args[:4] + args[5:]
+                getattr(lib, fn).argtypes = list(args)
                 getattr(lib, fn).restype = ctypes.c_int
         libs[key] = lib
     return libs
@@ -228,6 +282,63 @@ def b2_case(name):
         make_call(lib)()
         return bool(torch.equal(out, ref))
     return check, make_call
+
+
+def b3_case(name):
+    """(check, make_call, yardsticks) for B3 at ``name``: one of
+    ``bench.GRIDS``, ``fine`` or ``km``; the yardstick ``hybrid`` (torch
+    pass 1 + this build's B2) at the global grids only (at the regional
+    ones its ~190-310 pass-1 launches per call outrun the card's queue,
+    which ``device_ms`` needs ahead of the device)."""
+    import torch
+    from bench import GRIDS, make_world
+    from seabreeze_param_tpu_torch.ops.coastline import get_edges
+    from seabreeze_param_tpu_torch.ops.cuda.distance_kernel import (
+        pass2_min_cuda)
+    from seabreeze_param_tpu_torch.ops.distance import (
+        device_tables, effective_radius, min_haversine_param_from_padded,
+        pad_coast, pass1_extrema, window_monotone)
+    if name in ("fine", "km"):
+        grid, world = cs.fine_world() if name == "fine" else cs.km_world()
+        lsm, ci = world[0], world[7]
+    else:
+        grid, _, _ = cs.world_grid(name)
+        lsm, *_, ci = make_world(*GRIDS[name], 1, 1, seed=3)
+    dev = torch.device("cuda")
+    k = effective_radius(grid, 180.0)
+    tabs = device_tables(grid, k, dev)
+    cpad = pad_coast(get_edges(torch.as_tensor(lsm, device=dev),
+                               torch.as_tensor(ci[0], device=dev)), k)
+    h, w = grid.shape
+    ref = min_haversine_param_from_padded(cpad, *tabs, k)
+    out = torch.empty((h, w), device=dev)
+
+    # the first sweep's interface also takes per-row flags of sdphi2
+    rows = torch.as_tensor(window_monotone(tabs[0].cpu().numpy(), k).astype(
+        np.uint8), device=dev)
+
+    def make_call(lib):
+        flags = ((tabs.monotone.data_ptr(),)
+                 if hasattr(lib, "sbz_min_haversine_limits") else ())
+        if hasattr(lib, "sbz_min_haversine_row_flags"):
+            flags = (rows.data_ptr(),) + flags
+
+        def call():
+            err = lib.sbz_min_haversine(
+                cpad.data_ptr(), *(t.data_ptr() for t in tabs), *flags,
+                out.data_ptr(), h, w, k, stream())
+            assert err == 0, f"sbz_min_haversine: cudaError_t {err}"
+        return call
+
+    def check(lib):
+        out.fill_(float("nan"))
+        make_call(lib)()
+        return bool(torch.equal(out, ref))
+
+    yard = None if name in ("fine", "km") else {
+        "hybrid": lambda: pass2_min_cuda(pass1_extrema(cpad, tabs[2], k),
+                                         tabs[0], tabs[1], k)}
+    return check, make_call, yard
 
 
 def ring_inputs(name, nn=None):
@@ -499,6 +610,24 @@ def b6_host_parts(reps=200):
     return res
 
 
+def b3_clocks(lib, call):
+    """One call of a B3 build counting cycles by part
+    (``SBZ_MH2_CLOCKS``): each part's share of the warps' cycles, the
+    mean and most cycles of a block, and the blocks."""
+    import torch
+    buf = (ctypes.c_ulonglong * 7)()
+    lib.sbz_min_haversine_clocks(buf)            # zero the counters
+    call()
+    torch.cuda.synchronize()
+    lib.sbz_min_haversine_clocks(buf)
+    parts = ("wait", "pass1", "pass2", "barrier")
+    total = sum(buf[:4]) or 1
+    res = {p: buf[i] / total for i, p in enumerate(parts)}
+    res.update(block_mean=buf[4] / max(buf[6], 1), block_max=float(buf[5]),
+               blocks=float(buf[6]))
+    return res
+
+
 def time_round(names, libs_of, check, make_call, reps, yard=None):
     """Every build of ``names`` (and each yardstick) held bit-equal, then
     timed in list order and reversed, in each L2 mode; returns
@@ -526,7 +655,7 @@ def main():
                     metavar="NAME=DIR",
                     help="another checkout whose csrc/ is also built")
     ap.add_argument("--reps", type=int, default=30)
-    ap.add_argument("--only", default="B1,B2,B4,B5,B6",
+    ap.add_argument("--only", default="B1,B2,B3,B4,B5,B6",
                     help="comma-separated kernels to time")
     args = ap.parse_args()
     import torch
@@ -540,7 +669,8 @@ def main():
     only = set(args.only.split(","))
     against = dict(a.split("=", 1) for a in args.against)
     table = builds(against)
-    need = {"B1": "B1", "B4": "B1", "B5": "B1", "B2": "B2", "B6": "B6"}
+    need = {"B1": "B1", "B4": "B1", "B5": "B1", "B2": "B2", "B3": "B3",
+            "B6": "B6"}
     table = {k: v for k, v in table.items()
              if any(need[o] == k for o in only)}
     libs = build_all(table)
@@ -575,6 +705,12 @@ def main():
               mine + large)]
     plan += [("B1", "B1", "km@243", lambda: b1_case("km", 243),
               ["this"] + large)]
+    plan += [("B3", "B3", size, lambda z=size: b3_case(z), None)
+             for size in ("global025", "global010")]
+    # the parent's build and the first design refuse k >= 89
+    plan += [("B3", "B3", size, lambda z=size: b3_case(z),
+              [n for n in table.get("B3", ()) if n not in ("first", *against)])
+             for size in ("fine", "km")]
     for kern, group, size, case, names in plan:
         if kern not in only:
             continue
@@ -593,6 +729,13 @@ def main():
                   f"{t[0]:.2f} / {t[1]:.2f} us (forward / reversed), "
                   f"L2 flushed by a read {mean[name, 'read']:.2f}, "
                   f"warm {mean[name, 'warm']:.2f}", flush=True)
+        for name in names:
+            lib = libs[group, name]
+            if hasattr(lib, "sbz_min_haversine_clocks"):
+                clk = b3_clocks(lib, make_call(lib))
+                print(f"# {kern} {size} {name:14s} cycles by part: " + ", ".join(
+                    f"{k} {v:.4g}" for k, v in clk.items()), flush=True)
+                result.setdefault("B3_clocks", {})[size] = clk
         out = result.setdefault(kern, {})
         out[size] = {n: mean[n, "write"] for n in names + list(yard or {})}
         for m in ("read", "warm"):

@@ -3,16 +3,19 @@
 another's, in pairs of fresh processes on one NVIDIA GPU.
 
     python3 tools/compare_main_path.py --against DIR [--pairs N]
-                                       [--phase main|sharded]
+                                       [--phase main|sharded|fine|km]
 
 Each run is one process that imports the package of one checkout (this
 one, or ``DIR``, e.g. a ``git archive`` of the parent commit) and drives
 one phase of this checkout's ``chip_smoke.py``: ``phase_main`` (``diag``
 at global 0.25 deg, 32 steps with moving sea ice, kernel path and plain
 path, each after a warm-up call, and ``TriggerPipeline.run`` with the
-inputs resident on the card) or ``phase_sharded`` (``ShardedPipeline.run``
+inputs resident on the card), ``phase_sharded`` (``ShardedPipeline.run``
 on a 2 x 4 mesh of the card, 16 steps of the same world: overlapped,
-basic, plain, and the single-device run).  The harness is the same on
+basic, plain, and the single-device run), or the ``diag`` of a regional
+phase, ``regional_diag`` over ``fine_world`` (1024 x 1024 at 0.015 deg,
+8 steps) or ``km_world`` (1024 x 1024 at 0.009 deg, 4 steps), kernel path
+and plain path after a warm-up call.  The harness is the same on
 both sides; only the package differs.  Runs alternate in pairs (this first
 in even pairs, ``DIR`` first in odd ones).  Prints one line per run and a
 JSON line ``{"main_path": ...}`` with each side's runs, medians and
@@ -40,6 +43,17 @@ KEYS = {
                 "basic": ("ms_per_step", "basic"),
                 "plain": ("ms_per_step", "plain"),
                 "single": ("ms_per_step", "single")},
+    "fine": {"ms_per_step": ("ms_per_step",),
+             "plain_ms_per_step": ("plain_ms_per_step",)},
+    "km": {"ms_per_step": ("ms_per_step",),
+           "plain_ms_per_step": ("plain_ms_per_step",)},
+}
+#: Per phase, the statement that fills ``out``.
+DRIVE = {
+    "main": "cs.phase_main(out)",
+    "sharded": "cs.phase_sharded(out)",
+    "fine": "out.update(cs.regional_diag(cs.fine_world(), 'fine', 1))",
+    "km": "out.update(cs.regional_diag(cs.km_world(), '1 km', 1))",
 }
 
 RUN = """
@@ -49,7 +63,7 @@ spec = importlib.util.spec_from_file_location("smoke", {smoke!r})
 cs = importlib.util.module_from_spec(spec)
 spec.loader.exec_module(cs)
 out = {{}}
-cs.phase_{phase}(out)
+{drive}
 print(json.dumps(out))
 """
 
@@ -57,7 +71,7 @@ print(json.dumps(out))
 def run(side: Path, phase: str):
     """One process on ``side``'s package; the phase's numbers."""
     code = RUN.format(side=str(side), smoke=str(ROOT / "chip_smoke.py"),
-                      phase=phase)
+                      drive=DRIVE[phase])
     p = subprocess.run([sys.executable, "-c", code], cwd=side,
                        capture_output=True, text=True, timeout=600)
     if p.returncode:
