@@ -75,6 +75,14 @@ FINE_N, FINE_SPACING, FINE_STEPS = 1024, 0.015, 8
 #: The 1 km world: FINE_N x FINE_N cells KM_SPACING degrees apart from 54 N
 #: southward, KM_STEPS steps.
 KM_SPACING, KM_STEPS = 0.009, 4
+#: The wide-radius phase: FINE_N x FINE_N worlds from 54 N at these (k,
+#: spacing in degrees), WIDE_STEPS steps: a 0.4 km grid (k = 387) and k =
+#: 620, both past the widest radius of B3's shared-memory builds (354) and
+#: of B2's staged build (175).
+WIDE_WORLDS, WIDE_STEPS = ((387, 0.0036), (620, 0.00225)), 2
+#: The multi-process phase: ranks over gloo sharing the one card, and the
+#: seconds each launch of them may take.
+MP_RANKS, MP_TIMEOUT = 2, 480
 
 
 def log(msg):
@@ -1807,6 +1815,365 @@ def phase_driver(out):
                mesh_ms_per_step=mesh_ms, shares=shares)
 
 
+@functools.cache
+def wide_world(spacing):
+    """A FINE_N x FINE_N world ``spacing`` degrees apart from 54 N
+    southward, WIDE_STEPS steps (:func:`regional_world`)."""
+    return regional_world(spacing, 54.0, WIDE_STEPS)
+
+
+def wide_kernels(world, what):
+    """B3 and B2 alone on step 0 of a wide-radius world, each bit-equal to
+    its plain version and timed.  The bounds count, as :func:`b3_bound`
+    does, the taps of the outputs in reach only."""
+    import torch
+    from seabreeze_param_tpu_torch.models.pipeline import TriggerPipeline
+    from seabreeze_param_tpu_torch.ops.coastline import get_edges
+    from seabreeze_param_tpu_torch.ops.cuda.distance_kernel import (
+        min_haversine_limits, min_haversine_param_cuda, pass2_min_cuda,
+        pass2_min_limits)
+    from seabreeze_param_tpu_torch.ops.distance import (
+        min_haversine_param_from_padded, pad_coast, pass1_extrema, pass2_min)
+    grid, (lsm, *_, ci) = world
+    dev = torch.device("cuda")
+    pipe = TriggerPipeline(grid, device=dev)
+    k, tabs = pipe.k, pipe._tables()
+    if k <= min_haversine_limits() or k <= pass2_min_limits():
+        raise AssertionError(f"{what}: k = {k} is not past both limits")
+    L, C = (torch.as_tensor(a, device=dev) for a in (lsm, ci[0]))
+    cpad = pad_coast(get_edges(L, C), k)
+    sdphi2, po, sdlam2 = tabs
+
+    def b3():
+        return min_haversine_param_cuda(cpad, *tabs, k,
+                                        monotone=tabs.monotone)
+
+    mmin = pass1_extrema(cpad, sdlam2, k)
+
+    def b2():
+        return pass2_min_cuda(mmin, sdphi2, po, k)
+
+    amin = b3()
+    err3 = bit_equal(amin, min_haversine_param_from_padded(cpad, *tabs, k),
+                     f"{what} B3")
+    err2 = bit_equal(b2(), pass2_min(mmin, sdphi2, po, k), f"{what} B2")
+    bit_equal(b2(), amin, f"{what} B2 vs B3")
+    nbytes, ops = b3_bound(cpad, amin, k)
+    none = "none: no PyTorch call runs a masked min over a separable window"
+    t3 = dict(max_abs_err=err3, k=k, **timing(
+        b3, lambda: min_haversine_param_from_padded(cpad, *tabs, k), nbytes,
+        ops, library_note=none, plain_queued=True))
+    h, w = amin.shape
+    nwin = 2 * k + 1
+    reach = int((amin < float(BIG) / 2).sum())
+    t2 = dict(max_abs_err=err2, k=k, **timing(
+        b2, lambda: pass2_min(mmin, sdphi2, po, k),
+        4 * (mmin.numel() + h * w + 2 * h * nwin), 3 * nwin * reach,
+        library_note="none: no single PyTorch call takes a min over a "
+                     "weighted lat window", plain_queued=True))
+    return t3, t2
+
+
+def phase_wide(out):
+    """The distance kernels past their old limits (B3 refused k > 354, B2
+    raised for k > 175): B3's large build and B2's unstaged build alone at
+    k = 387 and 620, bit-equal to plain and timed; ``diag`` on the 0.4 km
+    world (k = 387) on the kernel path against plain (final ws/wd
+    bit-equal); and ``TriggerPipeline.run`` there with the hybrid distance
+    (B2) against the fused one (B3)."""
+    import torch
+    from seabreeze_param_tpu_torch.core.state import TriggerState
+    from seabreeze_param_tpu_torch.models.pipeline import TriggerPipeline
+
+    b3, b2 = {}, {}
+    for k, spacing in WIDE_WORLDS:
+        t3, t2 = wide_kernels(wide_world(spacing), f"k={k}")
+        if t3["k"] != k:
+            raise AssertionError(f"wide world at {spacing}: k = {t3['k']}")
+        b3[f"k{k}"], b2[f"k{k}"] = t3, t2
+        log(f"# wide radius k={k} ({FINE_N}x{FINE_N} at {spacing} deg from "
+            f"54 N): B3 large build bit-equal to plain, {fmt_timing(t3)}; "
+            f"B2 unstaged build bit-equal to plain, {fmt_timing(t2)} "
+            f"(plain: events around calls)")
+    k, spacing = WIDE_WORLDS[0]
+    world = wide_world(spacing)
+    dg = regional_diag(world, "0.4 km", 1)
+    grid, (lsm, z, std, pres, theta, u, v, ci) = world
+    T, nlat, nlon = theta.shape
+    dev = torch.device("cuda")
+    d = [torch.as_tensor(a, device=dev) for a in (theta, u, v, lsm, z, std,
+                                                    pres, ci)]
+    res, launches, ms = {}, {}, {}
+    for impl, kern in (("fused", "min_haversine"), ("hybrid", "pass2_min")):
+        pipe = TriggerPipeline(grid, device=dev, distance_impl=impl)
+
+        def run():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r = pipe.run(TriggerState.zeros((nlat, nlon), dev), *d[:7],
+                         ci_t=d[7])
+            torch.cuda.synchronize()
+            return r, (time.perf_counter() - t0) / T * 1e3
+
+        run()                                   # warm-up
+        zero_launches()
+        res[impl], ms[impl] = run()
+        launches[impl] = {n: c for n, c in read_launches().items() if c}
+        want = {kern: T, "ring_trigger_stacked": T}
+        if launches[impl] != want:
+            raise AssertionError(f"0.4 km {impl} run launches "
+                                 f"{launches[impl]}, want {want}")
+    (fstate, fouts), (hstate, houts) = res["fused"], res["hybrid"]
+    for key in fouts:
+        bit_equal(houts[key], fouts[key], f"0.4 km hybrid vs fused {key}")
+    for key, x in final_fields(hstate).items():
+        bit_equal(x, final_fields(fstate)[key], f"0.4 km hybrid final {key}")
+    log(f"# 0.4 km regional {nlat}x{nlon} at {spacing} deg (k={k}, NN="
+        f"{dg['nn']}), {nvidia_smi()}: diag T={T} kernel path "
+        f"{dg['ms_per_step']:.3f} ms/step, plain path "
+        f"{dg['plain_ms_per_step']:.3f}; launches {dg['launches']}; matches "
+        f"plain (max |diff| {dg['max_abs_err']:.3g}, final ws/wd "
+        f"bit-equal); TriggerPipeline.run fused {ms['fused']:.3f} ms/step, "
+        f"hybrid {ms['hybrid']:.3f}, launches {launches}, bit-equal")
+    out.update(launches=dg["launches"], nn=dg["nn"],
+               ms_per_step=dg["ms_per_step"],
+               plain_ms_per_step=dg["plain_ms_per_step"],
+               run_launches=launches, run_ms_per_step=ms, b3=b3, b2=b2)
+
+
+def spawn_ranks(case, tmp, *args):
+    """``chip_smoke.py --rank case tmp args`` in MP_RANKS processes over
+    gloo on the one card, with the launcher variables torchrun sets; each
+    rank's JSON result.  Every process is stopped before this returns, and
+    a rank that fails or outlasts MP_TIMEOUT fails the phase."""
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    env = dict(os.environ, MASTER_ADDR="localhost", MASTER_PORT=str(port),
+               WORLD_SIZE=str(MP_RANKS))
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--rank", case, tmp,
+         *args], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        env=dict(env, RANK=str(r), LOCAL_RANK=str(r)))
+        for r in range(MP_RANKS)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=MP_TIMEOUT)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, o) in enumerate(zip(procs, outs)):
+        if p.returncode:
+            raise AssertionError(f"multiprocess {case}: rank {r} exited "
+                                 f"{p.returncode}:\n{o[-3000:]}")
+    results = []
+    for r in range(MP_RANKS):
+        with open(os.path.join(tmp, f"{case}.{r}.json")) as f:
+            results.append(json.load(f))
+    return results
+
+
+def rank_driver(conf, res, what, ref, days, **kw):
+    """One rank's batch driver run over ``conf`` on the global 2 x 4 mesh:
+    rank 0 writes the files, which must be bit-equal to ``ref``'s files
+    ``days``, the other ranks none; the final state bit-equal to
+    ``ref``'s where the run ends with the series."""
+    import torch
+    from seabreeze_param_tpu_torch.cli import run
+    from seabreeze_param_tpu_torch.io import Dataset
+    from seabreeze_param_tpu_torch.parallel import distributed as dist
+    zero_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tt, thc, ws, wd, written = run.main(conf, progress=None, device="cuda",
+                                        mesh=SHARD_MESH, **kw)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = {n: c for n, c in read_launches().items() if c}
+    if not {"halo_exchange", "ring_trigger_stacked", dist_kernel()} <= set(
+            launches):
+        raise AssertionError(f"{what}: launches {launches}")
+    if len(written) != (len(days) if dist.rank() == 0 else 0):
+        raise AssertionError(f"{what}: rank {dist.rank()} wrote {written}")
+    for path, day in zip(written, days):
+        with Dataset(path) as f:
+            for key in ("sb_con", "thc"):
+                if not np.array_equal(np.ma.getdata(f.variables[key][:]),
+                                      ref[f"{day}_{key}"]):
+                    raise AssertionError(f"{what}: file {day} {key} not "
+                                         f"bit-equal to one process's")
+        os.remove(path)
+    if tt != 1 + (days[-1] + 1) * DRIVER_STEPS:
+        raise AssertionError(f"{what}: tt {tt}")
+    if days[-1] == DRIVER_DAYS - 1:
+        for name, x in (("thc", thc), ("ws", ws), ("wd", wd)):
+            if not np.array_equal(x, ref[name]):
+                raise AssertionError(f"{what}: final {name} not bit-equal")
+    res[what] = dict(launches=launches, tt=tt, files=len(written),
+                     ms_per_step=secs / (len(days) * DRIVER_STEPS) * 1e3)
+
+
+def rank_run(tmp, res, conf, conf2, ck):
+    """One rank of :func:`phase_multiprocess`'s first launch: the
+    references of one process first, then, in the group,
+    ``DistributedRunner`` on the main world's first SHARD_STEPS steps over
+    the global 2 x 4 mesh (resident inputs, each rank its rows), ``diag(
+    mesh='2x4')`` from host arrays, the batch driver over the series, and
+    the driver's first two days under ``ck``."""
+    import torch
+    from seabreeze_param_tpu_torch.api import diag
+    from seabreeze_param_tpu_torch.core.state import TriggerState
+    from seabreeze_param_tpu_torch.models.pipeline import TriggerPipeline
+    from seabreeze_param_tpu_torch.parallel import distributed as dist
+    from seabreeze_param_tpu_torch.parallel.mesh import make_mesh
+    from seabreeze_param_tpu_torch.parallel.sharded import ShardedPipeline
+
+    dev = torch.device("cuda")
+    grid, (lsm, z, std, pres, theta, u, v, ci) = main_world()
+    nlat, nlon = grid.shape
+    T = SHARD_STEPS
+    d = [torch.as_tensor(a, device=dev) for a in
+         (theta[:T], u[:T], v[:T], lsm, z, std, pres, ci[:T])]
+    single = TriggerPipeline(grid, device=dev)
+    # one process's 2 x 4 run and diag, before the group exists
+    rstate, rout = ShardedPipeline(single, make_mesh(SHARD_MESH, dev)).run(
+        TriggerState.zeros((nlat, nlon), dev), *d[:7], ci_t=d[7])
+    args = (1, lsm, z, std, grid.lon, grid.lat, pres, u[:T], v[:T],
+            theta[:T], ci[:T])
+    rdiag = diag(*args, device="cuda", full_output=True, mesh=SHARD_MESH)
+
+    dist.initialize()
+    if dist.world_size() != MP_RANKS:
+        raise AssertionError(f"world size {dist.world_size()}")
+    mesh = dist.make_multihost_mesh(SHARD_MESH, dev)
+    runner = dist.DistributedRunner(ShardedPipeline(single, mesh))
+    if not runner.sp.overlap:
+        raise AssertionError("multiprocess: not the overlapped structure")
+    lo, hi = runner.row_lo, min(runner.row_hi, nlat)
+    local = [x if x.dim() == 1 else x[..., lo:hi, :].contiguous()
+             for x in d]
+
+    def go():
+        dist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = runner.run(TriggerState.zeros((hi - lo, nlon), dev), *local[:7],
+                       ci_t=local[7])
+        torch.cuda.synchronize()
+        dist.barrier()
+        return r, (time.perf_counter() - t0) / T * 1e3
+
+    go()                                        # warm-up
+    zero_launches()
+    (fin, outs), ms = go()
+    launches = {n: c for n, c in read_launches().items() if c}
+    want = {"halo_exchange": 3 + 2 * T, "ring_trigger_stacked": mesh.size * T,
+            dist_kernel(): mesh.size * T}
+    if launches != want:
+        raise AssertionError(f"runner launches {launches}, want {want}")
+    for key in outs:
+        bit_equal(outs[key], rout[key][:, lo:hi], f"runner {key}")
+    for key, x in final_fields(fin).items():
+        bit_equal(x, final_fields(rstate)[key][lo:hi], f"runner final {key}")
+    res["runner"] = dict(launches=launches, ms_per_step=ms, rows=[lo, hi],
+                         local_mesh=list(mesh.shape))
+
+    diag(*args, device="cuda", full_output=True, mesh=SHARD_MESH)  # warm-up
+    zero_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = diag(*args, device="cuda", full_output=True, mesh=SHARD_MESH)
+    torch.cuda.synchronize()
+    dms = (time.perf_counter() - t0) / T * 1e3
+    dlaunches = {n: c for n, c in read_launches().items() if c}
+    want[dist_kernel()] += 1                    # the ring probe
+    if dlaunches != want:
+        raise AssertionError(f"diag launches {dlaunches}, want {want}")
+    if got[0] != rdiag[0]:
+        raise AssertionError("diag: tt differs")
+    for i in range(1, 5):
+        if not np.array_equal(got[i], rdiag[i]):
+            raise AssertionError(f"diag: return {i} not bit-equal")
+    for key in rdiag[5]:
+        if not np.array_equal(got[5][key], rdiag[5][key]):
+            raise AssertionError(f"diag: {key} not bit-equal")
+    res["diag"] = dict(launches=dlaunches, ms_per_step=dms)
+
+    ref = np.load(os.path.join(tmp, "driver_ref.npz"))
+    rank_driver(conf, res, "driver", ref, list(range(DRIVER_DAYS)))
+    rank_driver(conf2, res, "driver_first_two_days", ref, [0, 1],
+                ckpt_dir=ck)
+
+
+def rank_resume(tmp, res, conf, ck):
+    """One rank of :func:`phase_multiprocess`'s relaunch: the series under
+    the first launch's checkpoint directory resumes at day 3."""
+    from seabreeze_param_tpu_torch.parallel import distributed as dist
+    dist.initialize()
+    ref = np.load(os.path.join(tmp, "driver_ref.npz"))
+    rank_driver(conf, res, "resume", ref, [DRIVER_DAYS - 1], ckpt_dir=ck)
+
+
+def rank_main(case, tmp, *args):
+    """One rank of the multi-process phase (``--rank``): runs ``case`` and
+    writes its JSON result into ``tmp``."""
+    import torch
+    from seabreeze_param_tpu_torch.parallel import distributed as dist
+    res = {}
+    {"run": rank_run, "resume": rank_resume}[case](tmp, res, *args)
+    res.update(rank=dist.rank(), device=str(torch.cuda.current_device()))
+    dist.barrier()
+    with open(os.path.join(tmp, f"{case}.{dist.rank()}.json"), "w") as f:
+        json.dump(res, f)
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def phase_multiprocess(out):
+    """The multi-process run: MP_RANKS ranks over gloo sharing the one
+    card (halos and statistics through host memory), as subprocesses given
+    the launcher variables.  One process computes the references here and
+    in each rank; the ranks hold ``DistributedRunner`` (B6 + B3 + B1),
+    ``diag(mesh='2x4')`` and the batch driver bit-equal to them, only
+    rank 0 writing files; a relaunch resumes from the first launch's
+    checkpoint.  Each rank counts its own launches."""
+    import shutil
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="sb_mp_")
+    try:
+        conf, conf2 = write_series(tmp)
+        (tt, thc, ws, wd), files = driver_run(conf, mesh=SHARD_MESH)
+        np.savez(os.path.join(tmp, "driver_ref.npz"), tt=tt, thc=thc, ws=ws,
+                 wd=wd, **{f"{i}_{key}": x for i, f in enumerate(files)
+                           for key, x in f.items()})
+        ck = os.path.join(tmp, "ck")
+        t0 = time.perf_counter()
+        run = spawn_ranks("run", tmp, conf, conf2, ck)
+        run_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        resume = spawn_ranks("resume", tmp, conf, ck)
+        resume_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    for part in ("runner", "diag", "driver"):
+        log(f"# multiprocess {part} ({MP_RANKS} ranks over gloo on one card, "
+            f"global mesh {SHARD_MESH}): " + "; ".join(
+                f"rank {res['rank']} {res[part]['ms_per_step']:.3f} ms/step, "
+                f"launches {res[part]['launches']}" for res in run)
+            + "; bit-equal to one process")
+    log(f"# multiprocess resume: " + "; ".join(
+        f"rank {res['rank']} wrote {res['resume']['files']} file(s), tt "
+        f"{res['resume']['tt']}" for res in resume)
+        + f"; runner rows {[res['runner']['rows'] for res in run]}; "
+        f"{run_s:.1f} s and {resume_s:.1f} s for the two launches")
+    out.update(run=run, resume=resume, launch_s=[run_s, resume_s])
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1822,7 +2189,7 @@ def main():
     b2, b1, padded, main_out = {}, {}, {}, {}
     coupling, fused, dummy = {}, {}, {}
     b6, sharded, diag_mesh, dummy_sharded, driver = {}, {}, {}, {}, {}
-    fine, km = {}, {}
+    fine, km, wide, multiprocess = {}, {}, {}, {}
     phase_build()
     for name in ("global025", "global010"):
         phase_pass2(name, b2)
@@ -1836,10 +2203,12 @@ def main():
     phase_dummy(dummy)
     phase_fine(fine)
     phase_km(km)
+    phase_wide(wide)
     phase_sharded(sharded)
     phase_diag_mesh(diag_mesh)
     phase_dummy_sharded(dummy_sharded)
     phase_driver(driver)
+    phase_multiprocess(multiprocess)
 
     def per_kernel(name):
         return {g: padded[g][name] for g in padded}
@@ -1889,7 +2258,17 @@ def main():
              "ring_kernel.py:837", {"fine": fine["b4"]},
              fine["coupled_launches"]["ring_trigger_padded"],
              f"fine regional coupled step, NN = {fine['coupled_nn']}: B4's "
-             f"large build")):
+             f"large build"),
+            ("min_haversine_large", "min_haversine.cu",
+             "distance_kernel.py:93", wide["b3"],
+             wide["launches"]["min_haversine"],
+             f"0.4 km regional diag (k = {WIDE_WORLDS[0][0]}, NN = "
+             f"{wide['nn']}): B3's large build (k620: alone at k = 620)"),
+            ("pass2_min_unstaged", "pass2_min.cu", "distance_kernel.py:233",
+             wide["b2"], wide["run_launches"]["hybrid"]["pass2_min"],
+             f"TriggerPipeline(distance_impl='hybrid').run on the 0.4 km "
+             f"world (k = {WIDE_WORLDS[0][0]}): B2's unstaged build (k620: "
+             f"alone at k = 620)")):
         first, *rest = meas
         m = {key: meas[first][key] for key in keys if key in meas[first]}
         # ``ms`` is the line's name for the kernel's device time
@@ -1906,4 +2285,6 @@ def main():
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--rank"]:
+        sys.exit(rank_main(*sys.argv[2:]))
     sys.exit(main())

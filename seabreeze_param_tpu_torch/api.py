@@ -14,6 +14,13 @@ Extensions: ``device`` (the card by default), ``use_kernels``,
 ``(py, px)`` tuple or a :class:`parallel.mesh.ShardMesh`.  Returns host
 float32 arrays; ``thc`` is, as in the reference, the sea-level temperature
 t0.
+
+In a multi-process launch (a process group of more than one rank,
+``parallel.distributed.initialize``) every call runs the decomposed run
+over all processes, as the JAX package's does: ``mesh`` then fixes only
+the global mesh shape (default ``(world, 1)``), each process reads only
+its own rows of lazy netCDF handles, and every process returns the global
+fields, gathered over the process group.
 """
 from __future__ import annotations
 
@@ -101,6 +108,48 @@ def needed_ring_nn(pipe: TriggerPipeline, cdist0) -> int:
                    + params.ring_search_margin))
 
 
+def _run_multihost(pipe, mesh, key, state, t, u, v, lsm, z, std, pres, ci,
+                   single):
+    """The multi-process run (the reference's decomposed MPI run,
+    ``UM/vn10.7/sea_breeze_diag.F90:408-410``): a
+    :class:`parallel.distributed.DistributedRunner` over this process's
+    block of the global mesh, fed this process's rows only (``t``, ``u``,
+    ``v`` and ``ci`` may be lazy netCDF handles, read over those rows),
+    its outputs gathered back to the global grid on every process."""
+    from .parallel import distributed as pdist
+    from .parallel.mesh import ShardMesh, parse_shape
+    from .parallel.sharded import ShardedPipeline
+    shape = (mesh.global_shape if isinstance(mesh, ShardMesh)
+             else parse_shape(mesh))
+    runner = _cached_pipeline(
+        key + ("multihost", pdist.world_size(), shape),
+        lambda: pdist.DistributedRunner(ShardedPipeline(
+            pipe, pdist.make_multihost_mesh(shape, device=pipe.device))))
+    lo, hi = runner.row_lo, min(runner.row_hi, runner.sp.nlat_real)
+
+    def slab(a, lead_t=False):
+        """This process's rows of a field, read from disk for a lazy
+        handle; ``lead_t`` adds the time axis of a single-step input."""
+        nd = len(np.shape(a))
+        x = a[(slice(None),) * (nd - 2) + (slice(lo, hi), slice(None))]
+        x = np.asarray(x.filled(0) if hasattr(x, "filled") else x,
+                       np.float32)
+        return x[None] if lead_t and single else x
+
+    final, outs = runner.run(
+        TriggerState(state.tt, slab(state.thc), slab(state.windspeed),
+                     slab(state.winddir)),
+        slab(t, True), slab(u, True), slab(v, True), slab(lsm), slab(z),
+        slab(std), slab(pres) if np.ndim(pres) == 3 else pres,
+        ci_t=None if ci is None else slab(ci, True))
+    span, nlat = runner.row_hi - runner.row_lo, runner.sp.nlat_real
+    final = TriggerState(final.tt, *(
+        pdist.gather_rows(getattr(final, f), span, nlat)
+        for f in ("thc", "windspeed", "winddir")))
+    return final, {k: pdist.gather_rows(o, span, nlat)
+                   for k, o in outs.items()}
+
+
 def diag(tt, lsm, z, std, lon, lat, pres, *args, **kwargs):
     """See the module docstring and the reference docstring
     (``__init__.py:92-188``).
@@ -129,7 +178,9 @@ def diag(tt, lsm, z, std, lon, lat, pres, *args, **kwargs):
     if kwargs:
         raise TypeError(f"unknown keyword arguments: {sorted(kwargs)}")
     device = torch.device(device)
-    if mesh is not None:
+    from .parallel.distributed import world_size
+    multihost = world_size() > 1
+    if mesh is not None and not multihost:
         from .parallel.mesh import ShardMesh, make_mesh
         if not isinstance(mesh, ShardMesh):
             mesh = make_mesh(mesh, device=device)
@@ -186,21 +237,14 @@ def diag(tt, lsm, z, std, lon, lat, pres, *args, **kwargs):
             "diag input shapes inconsistent with (lon, lat, pres) — "
             + "; ".join(problems))
 
-    u = np.asarray(u[...], np.float32)
-    v = np.asarray(v[...], np.float32)
-    t = np.asarray(t[...], np.float32)
-    ci = _fill(None if ci is None else ci[...])
-    if single:
-        u, v, t = u[None], v[None], t[None]
-        if ci is not None:
-            ci = ci[None]
-
     # Ring-search bound from the first step's distance field, measured on
-    # the host (exact for any grid).  Sticky per grid: a bound >= the one
-    # needed is reused, since wider rings change nothing once both classes
-    # have latched.
+    # the host (exact for any grid; every process of a multi-process run
+    # measures the same global field).  Sticky per grid: a bound >= the
+    # one needed is reused, since wider rings change nothing once both
+    # classes have latched.
     lsm_d = torch.as_tensor(np.asarray(lsm, np.float32), device=device)
-    ci0 = None if ci is None else torch.as_tensor(ci[0], device=device)
+    ci0 = None if ci is None else torch.as_tensor(
+        _fill(ci[...] if single else ci[0]), device=device)
     cdist0 = pipe.distance_field(lsm_d, ci0).cpu().numpy()
     needed = needed_ring_nn(pipe, cdist0)
     nn_key = base_key + ("ring_nn",)
@@ -213,13 +257,26 @@ def diag(tt, lsm, z, std, lon, lat, pres, *args, **kwargs):
                                             ring_nn=ring_nn, device=device,
                                             use_kernels=use_kernels))
 
-    if mesh is not None:
-        from .parallel.sharded import ShardedPipeline
-        run_pipe = pipe
-        pipe = _cached_pipeline(
-            base_key + ("sharded", ring_nn, mesh.shape, str(mesh.device)),
-            lambda: ShardedPipeline(run_pipe, mesh))
-    final, outs = pipe.run(state, t, u, v, lsm_d, z, std, pres, ci_t=ci)
+    if multihost:
+        final, outs = _run_multihost(pipe, mesh, base_key + (ring_nn,), state,
+                                     t, u, v, lsm, z, std, pres, ci, single)
+    else:
+        u = np.asarray(u[...], np.float32)
+        v = np.asarray(v[...], np.float32)
+        t = np.asarray(t[...], np.float32)
+        ci = _fill(None if ci is None else ci[...])
+        if single:
+            u, v, t = u[None], v[None], t[None]
+            if ci is not None:
+                ci = ci[None]
+        if mesh is not None:
+            from .parallel.sharded import ShardedPipeline
+            run_pipe = pipe
+            pipe = _cached_pipeline(
+                base_key + ("sharded", ring_nn, mesh.shape,
+                            str(mesh.device)),
+                lambda: ShardedPipeline(run_pipe, mesh))
+        final, outs = pipe.run(state, t, u, v, lsm_d, z, std, pres, ci_t=ci)
     _, thc_o, ws_o, wd_o = final.to_numpy()
     ret = (tt + T, outs["sb_con"].cpu().numpy(), thc_o, ws_o, wd_o)
     if full_output:

@@ -15,6 +15,14 @@ CLI contract as the reference (``test_run.py:72-110``): ``--option=value``
 pairs, ``--help`` prints usage; unknown options are passed through to
 ``diag`` as keyword arguments (science-parameter overrides such as
 ``--maxdist=250``, and ``--device``, ``--use_kernels``, ``--mesh``).
+
+Several processes (``torchrun --nproc_per_node 2 -m
+seabreeze_param_tpu_torch.cli.run --config=run.conf``, or ``MASTER_ADDR``,
+``MASTER_PORT``, ``WORLD_SIZE``, ``RANK`` and ``LOCAL_RANK`` set by hand)
+run one decomposed run over all of them, as the JAX package's driver
+does: every process reads the input files (its own rows of the series),
+``diag`` runs over the global mesh (``parallel.distributed``), and only
+process 0 writes output files, progress and metrics.
 """
 from __future__ import annotations
 
@@ -43,13 +51,19 @@ def main(config, progress=sys.stdout, ckpt_dir=None, save_every=1,
     from ..io.native_nc import PrefetchPool
     from ..utils.metrics import StepMetrics
 
-    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
-        # The JAX package starts its distributed runtime here and runs one
-        # decomposed pipeline over every process; running the whole series
-        # once per process instead would only repeat the work.
-        raise NotImplementedError(
-            "the multi-process batch run is not ported yet (ROADMAP.md "
-            "queue 1, item 5.2: multi-process torch.distributed)")
+    from ..parallel import distributed as dist
+
+    # A multi-process launch (WORLD_SIZE > 1) joins the process group here;
+    # api.diag then runs every file over all processes.  With ckpt_dir the
+    # state saved is the gathered global state, the same on every process:
+    # process 0 writes it and the others wait (core.checkpoint), so a
+    # relaunch of all processes resumes from it.  A failure in one process
+    # only inside a collective needs that relaunch.
+    dist.initialize()
+    primary = dist.rank() == 0
+    if not primary:
+        progress = None
+        metrics_file = None
     if watchdog_s and not ckpt_dir:
         # The watchdog's abort path re-enters the unit from the last
         # checkpoint; without a checkpoint directory there is nothing to
@@ -105,12 +119,13 @@ def main(config, progress=sys.stdout, ckpt_dir=None, save_every=1,
                     exec_cache_hits=api.CACHE_STATS["pipeline_hits"],
                     exec_cache_misses=api.CACHE_STATS["pipeline_misses"])
                 metrics.emit()
-            meta.create_nc(sb_con, f_sb, "sb_con", nc_data.time)
-            # per-step sea-level temperature, under the reference's
-            # production name "thc" (the out[1] quirk — plot.py:97-99 reads
-            # it from the sb files)
-            meta.create_nc(outs["t0"], f_sb, "thc", nc_data.time)
-            written.append(f_sb)
+            if primary:
+                meta.create_nc(sb_con, f_sb, "sb_con", nc_data.time)
+                # per-step sea-level temperature, under the reference's
+                # production name "thc" (the out[1] quirk — plot.py:97-99
+                # reads it from the sb files)
+                meta.create_nc(outs["t0"], f_sb, "thc", nc_data.time)
+                written.append(f_sb)
         finally:
             for f in nc_data.nc.values():
                 f.close()
@@ -164,8 +179,10 @@ Options:
     metrics_file     : append one JSON metrics line per processed file
                        (per-step wall time, grid-points/s; default: off)
     mesh             : decomposed run on the one card — "auto" or "PYxPX",
-                       e.g. --mesh=2x4 (default: no decomposition).  A
-                       multi-process launch (WORLD_SIZE > 1) is refused.
+                       e.g. --mesh=2x4 (default: no decomposition).  In a
+                       multi-process launch (WORLD_SIZE > 1, e.g. torchrun)
+                       the global mesh over all processes, whose rows split
+                       evenly over them (default: one row per process)
     device           : torch device of the run (default: cuda)
     use_kernels      : false runs the plain torch path instead of the
                        hand-written kernels (default: the kernels on CUDA)

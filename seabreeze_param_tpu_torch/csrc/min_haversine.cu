@@ -63,7 +63,16 @@
 //   also sweeps 2k halo rows, pass 1 only, so shorter chunks cost more.
 // * Shared memory grows linearly in k: the ring and each warp's row and
 //   table buffers.  MAX_K is the widest k a block holds; the library
-//   exports it (sbz_min_haversine_limits) and the wrapper refuses wider k.
+//   exports it (sbz_min_haversine_limits).
+// The large build, for k > MAX_K (0.4 km grids, k = 387, and wider), keeps
+// the same sweep with nothing in shared memory that grows with k: the ring
+// of 2k+16 pass-1 rows and each warp's coast bit words live in a scratch
+// buffer in device memory that the caller allocates
+// (sbz_min_haversine_scratch), small enough with at most two blocks per SM
+// to stay in L2 (100 KB a block at k = 387); the coast bits are balloted
+// from the padded field as read, and pass 2 reads each output row's
+// (sdphi2, po) taps through L1 (__ldg, one address a warp) instead of
+// staging them.  One column a lane, no rows copied ahead.
 // Every design built on the way, and the thresholds above, were timed
 // against each other (tools/compare_designs.py --only B3, PERF.md).
 #include <cuda_runtime.h>
@@ -367,12 +376,205 @@ int launch(const float* cpad, const float* sdphi2, const float* po,
   return (int)cudaGetLastError();
 }
 
+// ---- the large build (k > MAX_K)
+
+// At most this many blocks per SM, so that their rings stay in L2.
+constexpr int LARGE_PER_SM = 2;
+
+// floats of one block's scratch: its ring (one column a lane) and each
+// warp's coast bit words, rounded to 16 bytes
+__host__ __device__ inline long long large_block_floats(int k) {
+  return ((long long)ring_rows(k) * 32 + (long long)S * row_words(k, 32) +
+          3) & ~3LL;
+}
+
+__global__ void __launch_bounds__(NT)
+min_haversine_large_kernel(const float* __restrict__ cpad,
+                           const float* __restrict__ sdphi2,
+                           const float* __restrict__ po,
+                           const float* __restrict__ sdlam2,
+                           const unsigned char* __restrict__ col_mono,
+                           float* __restrict__ out, float* scratch, int h,
+                           int w, int k, int ch) {
+  const int nwin = 2 * k + 1, pw = w + 2 * k, win = 32 + 2 * k;
+  const int nring = ring_rows(k), nw = row_words(k, 32);
+  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
+  const int c0 = blockIdx.x * 32, r0 = blockIdx.y * ch;
+  const int r1 = min(r0 + ch, h);
+  const int nrows = r1 - r0 + 2 * k;     // padded rows this block sweeps
+  const int nst = (nrows + S - 1) / S;
+  const int valid = min(win, pw - c0);   // window columns inside the field
+  // not restrict: written and read back by the block's own threads
+  float* ring = scratch + (size_t)(blockIdx.y * gridDim.x + blockIdx.x) *
+                              large_block_floats(k);
+  unsigned* words =
+      reinterpret_cast<unsigned*>(ring + (size_t)nring * 32) + wid * nw;
+  __shared__ int last_coast;
+  if (threadIdx.x == 0) last_coast = r0 - 1;
+  const int x = c0 + lane;
+  const bool xin = x < w;
+  const bool cmono = col_mono != nullptr && xin && col_mono[x] != 0;
+  const float* lam = sdlam2 + (size_t)(xin ? x : 0) * nwin;
+  __syncthreads();
+
+  int slot = wid;                        // ring slot of this warp's row
+  for (int s = 0; s <= nst; ++s) {
+    // ---- pass 1 on padded row r0 + s*S + wid
+    const int rr = s * S + wid;
+    if (s < nst && rr < nrows) {
+      const int pr = r0 + rr;
+      const float* row = cpad + (size_t)pr * pw + c0;
+      unsigned any = 0;
+#pragma unroll 4
+      for (int j = 0; j < nw; ++j) {
+        const int c = 32 * j + lane;
+        const unsigned b =
+            __ballot_sync(~0u, c < valid && __ldg(row + c) > 0.0f);
+        if (lane == 0) words[j] = b;
+        any |= b;
+      }
+      __syncwarp();
+      float m = INFINITY;
+      if (any && xin) {
+        const int lo = lane, p = lo + k, hi = lo + 2 * k;
+        if (cmono) {
+          // the nearest coast at or left of the centre, then at or right
+          int wi = p >> 5;
+          unsigned b = words[wi] & (0xFFFFFFFFu >> (31 - (p & 31)));
+          while (!b && wi > (lo >> 5)) b = words[--wi];
+          if (b) {
+            const int c = (wi << 5) + 31 - __clz(b);
+            if (c >= lo) m = __ldg(lam + c - lo);
+          }
+          wi = p >> 5;
+          b = words[wi] & (0xFFFFFFFFu << (p & 31));
+          while (!b && wi < (hi >> 5)) b = words[++wi];
+          if (b) {
+            const int c = (wi << 5) + __ffs(b) - 1;
+            if (c <= hi) m = fminf(m, __ldg(lam + c - lo));
+          }
+        } else {
+          for (int wi = lo >> 5; wi <= (hi >> 5); ++wi) {
+            unsigned b = words[wi];
+            if (wi == (lo >> 5)) b &= 0xFFFFFFFFu << (lo & 31);
+            if (wi == (hi >> 5)) b &= 0xFFFFFFFFu >> (31 - (hi & 31));
+            while (b) {
+              const int c = (wi << 5) + __ffs(b) - 1;
+              b &= b - 1;
+              m = fminf(m, __ldg(lam + c - lo));
+            }
+          }
+        }
+      }
+      ring[(size_t)slot * 32 + lane] = m;
+      if (__any_sync(~0u, m < 0.5f * BIG) && lane == 0)
+        atomicMax(&last_coast, pr);
+    }
+    slot += S;
+    if (slot >= nring) slot -= nring;
+
+    // ---- pass 2 on output row y, whose last window row was in stage s-1
+    const int y = r0 + (s - 1) * S + wid - 2 * k;
+    if (s >= 1 && y >= r0 && y < r1) {
+      float acc[4] = {BIG, BIG, BIG, BIG};
+      if (*reinterpret_cast<volatile int*>(&last_coast) >= y) {
+        const float* tp = sdphi2 + (size_t)y * nwin;
+        const float* tq = po + (size_t)y * nwin;
+        const int base = (y - r0) % nring;     // ring slot of padded row y
+        const int first = min(nwin, nring - base);
+        // taps di in [0, first) from slots base + di, then the rest from
+        // slots di - first, past the ring's end
+        long long off = (long long)base * 32 + lane;
+        int di = 0;
+        for (int end = first; ; end = nwin) {
+          for (; di + 4 <= end; di += 4) {
+#pragma unroll
+            for (int u = 0; u < 4; ++u)
+              acc[u] = fminf(acc[u],
+                             tap(make_float2(__ldg(tp + di + u),
+                                             __ldg(tq + di + u)),
+                                 ring[off + (long long)(di + u) * 32]));
+          }
+          for (; di < end; ++di)
+            acc[0] = fminf(acc[0], tap(make_float2(__ldg(tp + di),
+                                                   __ldg(tq + di)),
+                                       ring[off + (long long)di * 32]));
+          if (end == nwin) break;
+          off = lane - (long long)first * 32;
+        }
+      }
+      if (xin)
+        out[(size_t)y * w + x] =
+            fminf(fminf(acc[0], acc[1]), fminf(acc[2], acc[3]));
+    }
+    __syncthreads();
+  }
+}
+
+// The large build's grid: bands of 32 columns times chunks of rows, the
+// blocks filling at most LARGE_PER_SM block slots per SM once over.
+int large_grid(int h, int w, int k, dim3* grid, int* ch) {
+  int dev = 0, sms = 1, per_sm = 1;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, min_haversine_large_kernel, NT, 0);
+  if (err != cudaSuccess) {
+    cudaGetLastError();
+    return (int)err;
+  }
+  per_sm = per_sm < 1 ? 1 : (per_sm > LARGE_PER_SM ? LARGE_PER_SM : per_sm);
+  const int bands = (w + 31) / 32;
+  const long long slots = (long long)sms * per_sm;
+  int c = (int)(((long long)h * bands + slots - 1) / slots);
+  c = c < S ? S : c;
+  c = c > h ? h : c;
+  *grid = dim3(bands, (h + c - 1) / c);
+  *ch = c;
+  return 0;
+}
+
 }  // namespace
 
-// The widest k the kernel takes.
+// The widest k of the builds that stage in shared memory; wider k takes the
+// large build (sbz_min_haversine_large).
 extern "C" int sbz_min_haversine_limits(int* max_k) {
   *max_k = MAX_K;
   return 0;
+}
+
+// Floats of device scratch the large build needs at (h, w, k) on the
+// current device (0 for k <= MAX_K).
+extern "C" int sbz_min_haversine_scratch(int h, int w, int k,
+                                         long long* floats) {
+  *floats = 0;
+  if (k <= MAX_K || h <= 0 || w <= 0) return 0;
+  dim3 grid;
+  int ch = 0;
+  const int err = large_grid(h, w, k, &grid, &ch);
+  if (err) return err;
+  *floats = (long long)grid.x * grid.y * large_block_floats(k);
+  return 0;
+}
+
+// The large build, any k > MAX_K; scratch: sbz_min_haversine_scratch floats
+// of device memory, 16-byte aligned.  Arguments otherwise as below.
+extern "C" int sbz_min_haversine_large(const float* cpad, const float* sdphi2,
+                                       const float* po, const float* sdlam2,
+                                       const unsigned char* col_mono,
+                                       float* out, int h, int w, int k,
+                                       float* scratch, void* stream) {
+  if (k <= MAX_K || h <= 0 || w <= 0 || scratch == nullptr)
+    return (int)cudaErrorInvalidValue;
+  dim3 grid;
+  int ch = 0;
+  const int err = large_grid(h, w, k, &grid, &ch);
+  if (err) return err;
+  min_haversine_large_kernel<<<grid, NT, 0, (cudaStream_t)stream>>>(
+      cpad, sdphi2, po, sdlam2, col_mono, out, scratch, h, w, k, ch);
+  return (int)cudaGetLastError();
 }
 
 // col_mono (w bytes): nonzero where the column's row of sdlam2 has the

@@ -33,6 +33,14 @@
 // * The multiply and the add are rounded separately (__fmul_rn, __fadd_rn):
 //   nvcc would otherwise contract them into an FMA, and the result is then
 //   bit-equal to the plain version, which runs them as two torch ops.
+// * The strip grows with k and outgrows a block's shared memory past
+//   MAX_STAGED_K (175; 0.5 km grids have k = 310).  Wider k takes the
+//   unstaged build: the same tiles, each thread reading its column's 2k+1
+//   Mmin values through L1 (the rows of a thread's window overlap those of
+//   the next row's, and a warp reads 128 contiguous bytes a tap) and the
+//   taps' (sdphi2, po) through L1 as well (one address a warp), with four
+//   running minima a thread; no tile is skipped.  The library exports the
+//   threshold (sbz_pass2_min_limits).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -43,6 +51,19 @@ constexpr int TY = 4;    // threads along y
 constexpr int NT = TW * TY;
 constexpr int TH = 16;   // tile rows; each thread owns TH / TY of them
 constexpr float BIG = 1.0e30f;
+constexpr int SMEM_OPTIN = 232448;  // shared memory one block may hold
+
+// the staged build's shared memory: the strip and the tile's table rows
+constexpr size_t staged_smem(int k) {
+  return sizeof(float) * (size_t)(TH + 2 * k) * TW +
+         sizeof(float) * 2 * (size_t)TH * (2 * k + 1);
+}
+constexpr int max_staged_k() {
+  int k = 0;
+  while (staged_smem(k + 1) <= SMEM_OPTIN) ++k;
+  return k;
+}
+constexpr int MAX_STAGED_K = max_staged_k();
 
 __device__ __forceinline__ void cp_async(void* dst, const void* src,
                                          int bytes) {
@@ -126,30 +147,76 @@ pass2_min_kernel(const float* __restrict__ mmin,
   }
 }
 
+// The unstaged build (k > MAX_STAGED_K): the staged build's tiles and
+// threads, every value read through L1.
+__global__ void __launch_bounds__(NT)
+pass2_min_unstaged(const float* __restrict__ mmin,
+                   const float* __restrict__ sdphi2,
+                   const float* __restrict__ po, float* __restrict__ out,
+                   int h, int w, int k) {
+  const int nwin = 2 * k + 1;
+  const int x = blockIdx.x * TW + threadIdx.x;
+  if (x >= w) return;
+  for (int r = threadIdx.y; r < TH; r += TY) {
+    const int gy = blockIdx.y * TH + r;
+    if (gy >= h) break;
+    const float* m = mmin + (size_t)gy * w + x;
+    const float* tp = sdphi2 + (size_t)gy * nwin;
+    const float* tq = po + (size_t)gy * nwin;
+    float acc[4] = {BIG, BIG, BIG, BIG};
+    int di = 0;
+    for (; di + 4 <= nwin; di += 4) {
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const float lo = __ldg(m + (size_t)(di + u) * w);
+        const float cand = __fadd_rn(__ldg(tp + di + u),
+                                     __fmul_rn(__ldg(tq + di + u), lo));
+        acc[u] = fminf(acc[u], lo > 0.5f * BIG ? BIG : cand);
+      }
+    }
+    for (; di < nwin; ++di) {
+      const float lo = __ldg(m + (size_t)di * w);
+      const float cand = __fadd_rn(__ldg(tp + di), __fmul_rn(__ldg(tq + di),
+                                                              lo));
+      acc[0] = fminf(acc[0], lo > 0.5f * BIG ? BIG : cand);
+    }
+    out[(size_t)gy * w + x] =
+        fminf(fminf(acc[0], acc[1]), fminf(acc[2], acc[3]));
+  }
+}
+
 template <bool VEC>
 int launch(const float* mmin, const float* sdphi2, const float* po,
            float* out, int h, int w, int k, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * (size_t)(TH + 2 * k) * TW +
-                      sizeof(float2) * (size_t)TH * (2 * k + 1);
+  const dim3 grid((w + TW - 1) / TW, (h + TH - 1) / TH);
+  const dim3 block(TW, TY);
+  if (k > MAX_STAGED_K) {
+    pass2_min_unstaged<<<grid, block, 0, stream>>>(mmin, sdphi2, po, out, h,
+                                                   w, k);
+    return (int)cudaGetLastError();
+  }
+  const size_t smem = staged_smem(k);
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
         pass2_min_kernel<VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
-    // More than a block may hold (k too large): report it, and clear the
-    // error so the next launch does not read it back as its own.
     if (err != cudaSuccess) {
       cudaGetLastError();
       return (int)err;
     }
   }
-  const dim3 grid((w + TW - 1) / TW, (h + TH - 1) / TH);
-  const dim3 block(TW, TY);
   pass2_min_kernel<VEC><<<grid, block, smem, stream>>>(mmin, sdphi2, po,
                                                        out, h, w, k);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
+
+// The widest k of the staged build; wider k takes the unstaged build.
+extern "C" int sbz_pass2_min_limits(int* max_staged_k) {
+  *max_staged_k = MAX_STAGED_K;
+  return 0;
+}
 
 extern "C" int sbz_pass2_min(const float* mmin, const float* sdphi2,
                              const float* po, float* out, int h, int w, int k,

@@ -39,15 +39,21 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 
 #: C signatures of the launchers; each returns ``cudaGetLastError()``
-#: (``sbz_ring_limits`` and ``sbz_min_haversine_limits``, which read
-#: constants, return 0).
+#: (the ``*_limits`` functions, which read constants, return 0).
 SIGNATURES = {
     # mmin, sdphi2, po, out, h, w, k, stream
     "sbz_pass2_min": (_P, _P, _P, _P, _I, _I, _I, _P),
+    # &max_staged_k: the widest k of the launcher's staged build
+    "sbz_pass2_min_limits": (_P,),
     # cpad, sdphi2, po, sdlam2, col_mono, out, h, w, k, stream
     "sbz_min_haversine": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     # &max_k: the widest k the launcher above takes
     "sbz_min_haversine_limits": (_P,),
+    # h, w, k, &floats: the device scratch of the large build below
+    "sbz_min_haversine_scratch": (_I, _I, _I, _P),
+    # cpad, sdphi2, po, sdlam2, col_mono, out, h, w, k, scratch, stream:
+    # the large build, k past the limit above
+    "sbz_min_haversine_large": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P),
     # t0_pad, cd_pad, cd, ws_new, wd_new, ws_state, wd_state, ever,
     # sb_buf, ws_buf, wd_buf, h, w, nn, step, is_first, upd, row_offset,
     # nlat_total, skip_last_row, maxdist, thresh_wind, thresh_winddir,
@@ -71,6 +77,10 @@ SIGNATURES = {
     # src[S], dst[S] (host pointer arrays), py, px, c, h, w, hy, hx,
     # zero_fill, exact_lon, stream
     "sbz_halo_exchange": (_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+    # as above, then top, bot (the strips of a process edge, or null),
+    # stream
+    "sbz_halo_exchange_edges": (_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                                _P, _P, _P),
 }
 
 #: Seconds the last build took in this process (0.0 when it was cached).

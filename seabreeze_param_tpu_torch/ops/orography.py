@@ -12,7 +12,10 @@ The four statistics are global.  :func:`sigmoid_weight_shards` takes them
 over a mesh's shard list: the per-shard partial sums, counts, maxima and
 minima are combined first (the JAX package's psum/pmax/pmin), then the sum
 of squares about the global mean; ``valid_mask`` leaves the lat-padding
-rows of a decomposed grid out of them.
+rows of a decomposed grid out of them.  In a multi-process run each
+process holds some of the shards, and its partials are gathered over every
+process before they are reduced, in global shard order with the same ops,
+so the weights equal one process's on the same mesh.
 """
 from __future__ import annotations
 
@@ -34,21 +37,37 @@ def sigmoid_weight(std_field, *, valid_mask=None):
     return 1.0 / (1.0 + torch.exp(-s * (a - r)))
 
 
-def sigmoid_weight_shards(stds, valid_masks):
+def sigmoid_weight_shards(stds, valid_masks, gather=None):
     """:func:`sigmoid_weight` of the field that the shards ``stds`` make up
     together, one weight block per shard; ``valid_masks[i]`` (bool,
-    broadcastable to shard i) marks the cells the statistics count."""
+    broadcastable to shard i) marks the cells the statistics count.
+    ``gather`` — in a multi-process run, a function that concatenates an
+    (n, c) tensor of this process's per-shard partials with every other
+    process's, in global shard order (``parallel.distributed.
+    all_gather_cat``); None: these shards are the whole field."""
     vms = [torch.broadcast_to(vm, a.shape) for a, vm in zip(stds, valid_masks)]
-    n = float(sum(int(vm.sum()) for vm in vms))
-    total = torch.stack([torch.where(vm, a, 0.0).sum()
-                         for a, vm in zip(stds, vms)]).sum()
-    amax = torch.stack([torch.where(vm, a, -torch.inf).max()
-                        for a, vm in zip(stds, vms)]).max()
-    amin = torch.stack([torch.where(vm, a, torch.inf).min()
-                        for a, vm in zip(stds, vms)]).min()
+    counts = torch.stack([vm.sum() for vm in vms])
+    sums = torch.stack([torch.where(vm, a, 0.0).sum()
+                        for a, vm in zip(stds, vms)])
+    maxes = torch.stack([torch.where(vm, a, -torch.inf).max()
+                         for a, vm in zip(stds, vms)])
+    mins = torch.stack([torch.where(vm, a, torch.inf).min()
+                        for a, vm in zip(stds, vms)])
+    if gather is not None:
+        # float64 carries the float32 partials and the counts exactly
+        part = gather(torch.stack([counts.double(), sums.double(),
+                                   maxes.double(), mins.double()], 1))
+        counts = part[:, 0].long()
+        sums, maxes, mins = (part[:, i].float().contiguous()
+                             for i in (1, 2, 3))
+    n = float(int(counts.sum()))
+    total, amax, amin = sums.sum(), maxes.max(), mins.min()
     mean = total / n
-    var = torch.stack([torch.where(vm, (a - mean) ** 2, 0.0).sum()
-                       for a, vm in zip(stds, vms)]).sum()
+    sq = torch.stack([torch.where(vm, (a - mean) ** 2, 0.0).sum()
+                      for a, vm in zip(stds, vms)])
+    if gather is not None:
+        sq = gather(sq.double()[:, None])[:, 0].float().contiguous()
+    var = sq.sum()
     s = 2.0 / torch.sqrt(var / n)
     r = (amax - amin) / 4.0
     return [1.0 / (1.0 + torch.exp(-s * (a - r))) for a in stds]

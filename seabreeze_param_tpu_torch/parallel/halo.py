@@ -30,6 +30,15 @@ at once.  Two backends:
 
 The fill options are given to ``halo_start`` (the JAX package gives them
 to ``halo_finish``), because B6 applies them in its one launch.
+
+A process's block of a multi-process mesh (``ShardMesh.world`` > 1) keeps
+the fills only at the global edges (the top of rank 0, the bottom of the
+last rank).  At a process edge ``halo_start`` first trades boundary rows
+with the neighbouring process (``parallel.distributed.exchange_edges``:
+``hy`` rows at full width, through host buffers over gloo), and the rows
+beyond that edge take the neighbour's rows in place of the fill, on both
+backends; the lon ring and the seam patches then come out as on one
+process.
 """
 from __future__ import annotations
 
@@ -43,20 +52,29 @@ LAT_FILLS = ("clamp", "zero")
 BACKENDS = ("kernel", "plain")
 
 
-def halo_parts(local, mesh: ShardMesh, hy: int, hx: int):
+def halo_parts(local, mesh: ShardMesh, hy: int, hx: int,
+               edges=(None, None)):
     """Per shard, the dict of its received strips and corners (keys
     ``left right top bot tl tr bl br``; ``None`` where the bounded lat axis
     has no neighbour).  Corners come straight from the diagonal neighbour.
-    """
+    ``edges`` — ``(top, bot)``: the neighbour process's boundary rows
+    ``(..., hy, px*w)`` beyond this block's first or last mesh row, which
+    serve as that row's neighbours; None at a global edge."""
     py, px = mesh.shape
-
-    def at(iy, ix):
-        return local[iy * px + ix % px] if 0 <= iy < py else None
-
-    def cut(t, rows, cols):
-        return None if t is None else t[..., rows, cols]
-
     h, w = local[0].shape[-2:]
+    top, bot = edges
+
+    def at(iy, ix, rows):
+        ix %= px
+        if 0 <= iy < py:
+            return local[iy * px + ix][..., rows, :]
+        edge = top if iy < 0 else bot
+        return None if edge is None else edge[..., ix * w:(ix + 1) * w]
+
+    def cut(iy, ix, rows, cols):
+        t = at(iy, ix, rows)
+        return None if t is None else t[..., cols]
+
     top_r, bot_r = slice(h - hy, h), slice(0, hy)
     left_c, right_c, all_c = slice(w - hx, w), slice(0, hx), slice(0, w)
     parts = []
@@ -64,16 +82,16 @@ def halo_parts(local, mesh: ShardMesh, hy: int, hx: int):
         iy, ix = mesh.coords(s)
         p = {}
         if hx:
-            p["left"] = cut(at(iy, ix - 1), slice(0, h), left_c)
-            p["right"] = cut(at(iy, ix + 1), slice(0, h), right_c)
+            p["left"] = cut(iy, ix - 1, slice(0, h), left_c)
+            p["right"] = cut(iy, ix + 1, slice(0, h), right_c)
         if hy:
-            p["top"] = cut(at(iy - 1, ix), top_r, all_c)
-            p["bot"] = cut(at(iy + 1, ix), bot_r, all_c)
+            p["top"] = cut(iy - 1, ix, top_r, all_c)
+            p["bot"] = cut(iy + 1, ix, bot_r, all_c)
         if hy and hx:
-            p["tl"] = cut(at(iy - 1, ix - 1), top_r, left_c)
-            p["tr"] = cut(at(iy - 1, ix + 1), top_r, right_c)
-            p["bl"] = cut(at(iy + 1, ix - 1), bot_r, left_c)
-            p["br"] = cut(at(iy + 1, ix + 1), bot_r, right_c)
+            p["tl"] = cut(iy - 1, ix - 1, top_r, left_c)
+            p["tr"] = cut(iy - 1, ix + 1, top_r, right_c)
+            p["bl"] = cut(iy + 1, ix - 1, bot_r, left_c)
+            p["br"] = cut(iy + 1, ix + 1, bot_r, right_c)
         parts.append(p)
     return parts
 
@@ -116,12 +134,14 @@ def check_exchange(local, mesh: ShardMesh, hy: int, hx: int, lat_fill):
 
 
 def halo_exchange_plain(local, mesh: ShardMesh, hy: int, hx: int, *,
-                        lat_fill: str = "clamp", exact_lon: bool = True):
+                        lat_fill: str = "clamp", exact_lon: bool = True,
+                        edges=(None, None)):
     """Kernel B6's plain version: the padded (..., h+2hy, w+2hx) block of
-    every shard, from :func:`halo_parts` and ``torch.cat``."""
+    every shard, from :func:`halo_parts` and ``torch.cat``; ``edges`` as
+    in :func:`halo_parts`."""
     check_exchange(local, mesh, hy, hx, lat_fill)
-    return _assemble(local, halo_parts(local, mesh, hy, hx), mesh, hy, hx,
-                     lat_fill, exact_lon)
+    return _assemble(local, halo_parts(local, mesh, hy, hx, edges), mesh, hy,
+                     hx, lat_fill, exact_lon)
 
 
 def _assemble(local, parts, mesh, hy, hx, lat_fill, exact_lon):
@@ -180,17 +200,23 @@ def halo_start(local, mesh: ShardMesh, hy: int, hx: int, *,
     """Issue the exchange of a shard list (``mesh.size`` tensors of one
     shape ``(..., h, w)``).  ``'kernel'``: one launch of B6 (the plain
     version for CPU tensors) writes the finished padded blocks; ``'plain'``:
-    the neighbour strips are sliced, to be joined by :func:`halo_finish`."""
+    the neighbour strips are sliced, to be joined by :func:`halo_finish`.
+    A process edge's rows are traded with the neighbour first (module
+    docstring)."""
     backend = resolve_backend(backend)
     check_exchange(local, mesh, hy, hx, lat_fill)
+    edges = (None, None)
+    if mesh.world > 1:
+        from .distributed import exchange_edges
+        edges = exchange_edges(local, mesh, hy)
     if backend == "kernel":
         from ..ops.cuda.halo_kernel import halo_exchange_cuda
         padded = halo_exchange_cuda(local, mesh, hy, hx, lat_fill=lat_fill,
-                                    exact_lon=exact_lon)
+                                    exact_lon=exact_lon, edges=edges)
         return HaloParts(local, mesh, hy, hx, lat_fill, exact_lon,
                          padded=padded)
     return HaloParts(local, mesh, hy, hx, lat_fill, exact_lon,
-                     parts=halo_parts(local, mesh, hy, hx))
+                     parts=halo_parts(local, mesh, hy, hx, edges))
 
 
 def halo_finish(parts: HaloParts):

@@ -8,6 +8,12 @@ field is a list of ``py * px`` contiguous ``(..., h, w)`` tensors in
 row-major shard order (shard ``s`` sits at mesh row ``s // px``, column
 ``s % px``; lat rows ride y, lon columns ride x).  :func:`split` cuts a
 global tensor into that list and :func:`gather` puts it back.
+
+In a multi-process run (``parallel.distributed``) each of ``world``
+processes holds a :class:`ShardMesh` of its own: ``py`` contiguous rows of
+a global ``(py * world, px)`` mesh at full longitude, starting at global
+mesh row ``rank * py``; the shard list, :func:`split` and :func:`gather`
+then cover that process's row block.
 """
 from __future__ import annotations
 
@@ -19,15 +25,28 @@ import torch
 
 @dataclasses.dataclass(frozen=True)
 class ShardMesh:
-    """``py`` lat shards by ``px`` lon shards, all on ``device``."""
+    """``py`` lat shards by ``px`` lon shards, all on ``device``: the whole
+    mesh, or with ``world`` > 1 process ``rank``'s rows of a global mesh of
+    ``py * world`` rows."""
 
     py: int
     px: int
     device: torch.device
+    rank: int = 0
+    world: int = 1
 
     @property
     def shape(self) -> tuple[int, int]:
         return (self.py, self.px)
+
+    @property
+    def global_shape(self) -> tuple[int, int]:
+        return (self.py * self.world, self.px)
+
+    @property
+    def row0(self) -> int:
+        """The global mesh row of this process's first mesh row."""
+        return self.rank * self.py
 
     @property
     def size(self) -> int:

@@ -33,6 +33,13 @@ lat axis to a multiple of the mesh rows is (global statistics leave the
 padding rows out through ``valid_mask``; outputs are sliced back to the
 real rows): see the JAX module's docstring, which this port follows step
 for step.
+
+Over a multi-process mesh (``parallel.distributed``) each process runs its
+own block of mesh rows (:meth:`ShardedPipeline.run_block`): the halo-width
+guard and the choice of structure stay per shard, the lat padding, the
+tables and the row offsets come from the global grid, a process edge's
+halo rows from the neighbouring process, and the sigmoid's statistics are
+gathered over every process.
 """
 from __future__ import annotations
 
@@ -57,6 +64,15 @@ from .mesh import ShardMesh, gather, split
 OUT_KEYS = ("sb_con", "t0", "windspeed", "winddir")
 
 
+def take_rows(a, rows, dev):
+    """The rows ``rows`` (dim -2; an index array) of an array or tensor, as
+    a float32 tensor on ``dev``; a host array is indexed on the host."""
+    if isinstance(a, torch.Tensor):
+        return _f32(a, dev).index_select(a.dim() - 2,
+                                         torch.as_tensor(rows, device=dev))
+    return _f32(np.take(np.asarray(a), rows, axis=-2), dev)
+
+
 def _pad_lat(t, nlat_pad: int):
     """Replicate the last lat row (dim -2) of a tensor up to nlat_pad."""
     nlat = t.shape[-2]
@@ -71,9 +87,10 @@ class ShardedPipeline:
     """Decomposed version of :class:`models.pipeline.TriggerPipeline`.
 
     Requires nlon % px == 0; nlat is replication-padded to a multiple of
-    py.  ``overlap`` — ``'auto'`` (default): the overlapped structure
-    whenever the mask apron fits the shard, else basic; True/False force
-    it.  ``halo_backend`` — ``'auto'`` (default): ``'kernel'`` (B6; its
+    the global mesh rows; on a multi-process mesh this process owns the
+    padded rows ``[row_lo, row_hi)``.  ``overlap`` — ``'auto'``
+    (default): the overlapped structure whenever the mask apron fits the
+    shard, else basic; True/False force it.  ``halo_backend`` — ``'auto'`` (default): ``'kernel'`` (B6; its
     plain version for CPU tensors) unless the pipeline has
     ``use_kernels=False``, then ``'plain'``.  The JAX package's
     ``'ppermute'`` and ``'dma'`` are ``'plain'`` and ``'kernel'`` here.
@@ -94,8 +111,9 @@ class ShardedPipeline:
                              f"{mesh.device}")
         if grid.nlon % px:
             raise ValueError(f"nlon={grid.nlon} not divisible by mesh x={px}")
+        py_all = mesh.global_shape[0]
         self.nlat_real = grid.nlat
-        self.nlat_pad = -(-grid.nlat // py) * py
+        self.nlat_pad = -(-grid.nlat // py_all) * py_all
         lat_idx = np.minimum(np.arange(self.nlat_pad), grid.nlat - 1)
         self.grid_padded = Grid(lon=grid.lon, lat=grid.lat[lat_idx])
         self.k, self.nn_max = pipe.k, pipe.nn_max
@@ -108,7 +126,9 @@ class ShardedPipeline:
         # shard, in lon strictly when the quirky seam patches are on (at
         # hx == w the copy of global column nlon-1 in a neighbour's
         # opposite halo has no patch position).
-        self.h, self.w = self.nlat_pad // py, grid.nlon // px
+        self.h, self.w = self.nlat_pad // py_all, grid.nlon // px
+        self.row_lo = mesh.row0 * self.h
+        self.row_hi = self.row_lo + py * self.h
         a_m = self.nn_max + self.k + 1          # overlapped mask apron
         basic = max(1, self.k, self.nn_max)     # basic-path widths
         exact = pipe.params.exact_lon_indexing
@@ -135,8 +155,9 @@ class ShardedPipeline:
                           exact_lon=exact_lon, backend=self.halo_backend)
 
     def _offsets(self, s: int):
+        """Global (row, column) of shard ``s``'s first cell."""
         iy, ix = self.mesh.coords(s)
-        return iy * self.h, ix * self.w
+        return self.row_lo + iy * self.h, ix * self.w
 
     def _distance(self, cpads, lsm_s, tables):
         params = self.pipeline.params
@@ -177,10 +198,10 @@ class ShardedPipeline:
             cds = self._distance([sobel_edges_from_padded(m)
                                   for m in mask_pads], lsm_ext, ext_tables)
             for s, (below, above) in enumerate(edges):
-                iy, _ = mesh.coords(s)
-                if iy == 0:
+                r0 = self._offsets(s)[0]
+                if r0 == 0:
                     cds[s] = torch.where(below, cds[s][nn:nn + 1], cds[s])
-                if iy == mesh.py - 1:
+                if r0 + h == self.nlat_pad:
                     cds[s] = torch.where(above, cds[s][nn + h - 1:nn + h],
                                          cds[s])
             return cds
@@ -286,13 +307,51 @@ class ShardedPipeline:
             ci_t=None):
         """Entry point with the arguments of ``TriggerPipeline.run``
         (arrays or tensors, moved to the mesh's device as float32): pads
-        lat, splits into shards, runs, gathers, slices back to the real
-        rows.  Returns ``(final_state, outputs)``, outputs the four (T,
-        nlat, nlon) tensors; ``state`` is not modified."""
+        lat, takes this process's rows, runs them (:meth:`run_block`),
+        gathers every process's rows and slices back to the real rows.
+        Returns ``(final_state, outputs)``, outputs the four (T, nlat,
+        nlon) tensors; ``state`` is not modified."""
+        dev = self.mesh.device
+        if self.mesh.world == 1:
+            def block(a):
+                return _pad_lat(_f32(a, dev), self.nlat_pad)
+        else:
+            rows = np.minimum(np.arange(self.row_lo, self.row_hi),
+                              self.nlat_real - 1)
+
+            def block(a):
+                return take_rows(a, rows, dev)
+
+        pres_b = block(pres) if np.ndim(pres) == 3 else pres
+        final, outs = self.run_block(
+            TriggerState(state.tt, *(block(getattr(state, f)) for f in
+                                     ("thc", "windspeed", "winddir"))),
+            block(theta_t), block(u_t), block(v_t), block(lsm), block(z),
+            block(std), pres_b, ci_t=None if ci_t is None else block(ci_t))
+        if self.mesh.world > 1:
+            from .distributed import gather_rows
+            span = self.row_hi - self.row_lo
+            final = TriggerState(final.tt, *(
+                gather_rows(getattr(final, f), span, self.nlat_pad)
+                for f in ("thc", "windspeed", "winddir")))
+            outs = {key: gather_rows(o, span, self.nlat_pad)
+                    for key, o in outs.items()}
+        real = slice(0, self.nlat_real)
+        return (TriggerState(final.tt, final.thc[real], final.windspeed[real],
+                             final.winddir[real]),
+                {key: o[:, real].contiguous() for key, o in outs.items()})
+
+    def run_block(self, state: TriggerState, theta_t, u_t, v_t, lsm, z, std,
+                  pres, ci_t=None):
+        """Run this process's block: every field argument is the rows
+        ``[row_lo, row_hi)`` of the lat-padded global field (``pres`` 1-D,
+        or its block of a 3-D field).  Returns ``(final_state, outputs)``
+        of those rows, padding rows included, as tensors on the mesh's
+        device."""
         mesh, dev = self.mesh, self.mesh.device
 
         def shards(a):
-            return split(_pad_lat(_f32(a, dev), self.nlat_pad), mesh)
+            return split(_f32(a, dev), mesh)
 
         T = int(np.shape(theta_t)[0])
         xs = (shards(theta_t), shards(u_t), shards(v_t),
@@ -307,13 +366,15 @@ class ShardedPipeline:
         valid = [(torch.arange(r0, r0 + self.h, device=dev)
                   < self.nlat_real)[:, None]
                  for r0 in (self._offsets(s)[0] for s in range(mesh.size))]
-        smods = sigmoid_weight_shards(std_s, valid)
+        if mesh.world > 1:
+            from .distributed import all_gather_cat
+            smods = sigmoid_weight_shards(std_s, valid, all_gather_cat)
+        else:
+            smods = sigmoid_weight_shards(std_s, valid)
         core = self._core_overlap if self.overlap else self._core_basic
         states, outs = core(states, xs, lsm_s, z_s, smods, pres_s, T)
-
-        real = slice(0, self.nlat_real)
         final = TriggerState(states[0].tt, *(
-            gather([getattr(st, f) for st in states], mesh)[real]
+            gather([getattr(st, f) for st in states], mesh)
             for f in ("thc", "windspeed", "winddir")))
-        return final, {key: gather([o[key] for o in outs], mesh)[:, real]
-                       .contiguous() for key in OUT_KEYS}
+        return final, {key: gather([o[key] for o in outs], mesh)
+                       for key in OUT_KEYS}

@@ -9,7 +9,8 @@ Without a CUDA device every test skips: the kernels have no CPU mode.
 Grids include a ragged tile edge (37 x 70) and a grid smaller than one
 tile (10 x 20), whose wrap seam pushes the ring radius up.  Kernels B1 and
 B3 carry ``TriggerPipeline.run`` (B2 its hybrid distance), B3 also takes
-every radius up to ``min_haversine_limits`` (354), B4 the per-step
+every radius (past ``min_haversine_limits``, 354, its large build; B2
+past ``pass2_min_limits``, 175, its unstaged build), B4 the per-step
 coupling path, B5 the ring search alone, B6 the halo exchange of the
 decomposed run (``ShardedPipeline``), on ragged, 1-wide and 64-shard
 meshes.  B1, B4 and B5 run ring radii up to the widest their kernels take
@@ -28,7 +29,8 @@ from seabreeze_param_tpu_torch.coupling import CoupledTrigger
 from seabreeze_param_tpu_torch.models.pipeline import TriggerPipeline
 from seabreeze_param_tpu_torch.ops.coastline import get_edges
 from seabreeze_param_tpu_torch.ops.cuda.distance_kernel import (
-    min_haversine_limits, min_haversine_param_cuda, pass2_min_cuda)
+    min_haversine_limits, min_haversine_param_cuda, pass2_min_cuda,
+    pass2_min_limits)
 from seabreeze_param_tpu_torch.ops.cuda.halo_kernel import halo_exchange_cuda
 from seabreeze_param_tpu_torch.ops.cuda.ring_kernel import (
     StackedScan, ring_limits, ring_thc_cuda_padded, ring_trigger_cuda_padded,
@@ -105,13 +107,16 @@ PASS2_SHAPES = [(3, 20), (16, 128), (37, 70), (45, 301), (64, 256),
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", PASS2_SHAPES)
-@pytest.mark.parametrize("k", [0, 1, 6, 15])
+@pytest.mark.parametrize("k", [0, 1, 6, 15, 176, 310, 387, 1000])
 @pytest.mark.parametrize("offset", [0, 1])
 def test_pass2_kernel_shapes_bit_equal_to_plain(shape, k, offset, dev):
     """B2 against its plain version, bit for bit, on random Mmin with BIG
-    rows, BIG blocks and BIG cells, at k = 0 (one tap) to 15; ``offset``
-    1 places Mmin and so its rows off the 16-byte alignment (the scalar
-    path)."""
+    rows, BIG blocks and BIG cells, at k = 0 (one tap) to 15 and past the
+    staged build's widest radius (175, ``pass2_min_limits``; the unstaged
+    build: a 0.5 km grid's 310, a 0.4 km grid's 387, 1000), where the
+    launcher once raised; ``offset`` 1 places Mmin and so its rows off the
+    16-byte alignment (the scalar path)."""
+    assert pass2_min_limits() == 175
     h, w = shape
     rng = np.random.default_rng(h * 1000 + w + k)
     m = rng.random((h + 2 * k, w)).astype(np.float32)
@@ -441,17 +446,20 @@ def test_wrappers_reject_bad_tensors(dev):
 
 @pytest.mark.cuda
 def test_launchers_reject_oversized_shared_memory(dev):
-    """A radius too wide for one block's shared memory: the launcher's
-    cudaFuncSetAttribute fails, the wrapper raises and counts no launch,
-    and the next good launch is not blamed for the error."""
+    """B2 at a radius whose strip (~1.5 MB) no block's shared memory holds
+    runs its unstaged build (it once raised a cudaError_t); B1 past its
+    widest radius raises ``ValueError`` and counts no launch; and the next
+    good launch is not blamed for anything."""
     def zeros(*shape):
         return torch.zeros(shape, device=dev)
 
     k = 1000                                  # B2: ~1.5 MB per block
     p0, r0 = pass2_min_cuda.launches, ring_trigger_cuda_stacked.launches
-    with pytest.raises(RuntimeError, match="cudaError_t"):
-        pass2_min_cuda(zeros(10 + 2 * k, 16), zeros(10, 2 * k + 1),
-                       zeros(10, 2 * k + 1), k)
+    out = pass2_min_cuda(torch.full((10 + 2 * k, 16), 1.0e30, device=dev),
+                         zeros(10, 2 * k + 1), zeros(10, 2 * k + 1), k)
+    torch.cuda.synchronize()
+    assert pass2_min_cuda.launches == p0 + 1 and (out == 1.0e30).all()
+    p0 += 1
     h, w, nn = 8, 8, ring_limits()[1] + 1     # B1: past its widest radius
     params = Params()
     scan = StackedScan(h, w, params, dev)
@@ -472,25 +480,34 @@ def test_launchers_reject_oversized_shared_memory(dev):
 
 @pytest.mark.cuda
 def test_new_launchers_reject_oversized_shared_memory(dev):
-    """B3 one past its widest radius (``min_haversine_limits``: its shared
-    memory grows linearly in k) and B4/B5 at NN = 2048, past theirs: each
-    wrapper raises ``ValueError`` naming the limit before launching,
-    counts no launch, and the next good launch is not blamed."""
+    """B3 one past the widest radius its shared memory holds
+    (``min_haversine_limits``, 354) and at 1000 runs its large build,
+    bit-equal to plain (it once raised ``ValueError`` there); B4/B5 at NN
+    = 2048, past theirs: each wrapper raises ``ValueError`` naming the
+    limit before launching and counts no launch; the next good launch is
+    not blamed."""
     def zeros(*shape):
         return torch.zeros(shape, device=dev)
 
     counts = lambda: (min_haversine_param_cuda.launches,  # noqa: E731
                       ring_trigger_cuda_padded.launches,
                       ring_thc_cuda_padded.launches)
-    before = counts()
     max_k = min_haversine_limits()
-    assert max_k >= 310                       # a 0.5 km grid at 54 N
+    assert max_k == 354
+    rng = np.random.default_rng(0)
     for k in (max_k + 1, 1000):
         h, w = 10, 16
-        with pytest.raises(ValueError, match=f"k <= {max_k}"):
-            min_haversine_param_cuda(zeros(h + 2 * k, w + 2 * k),
-                                     zeros(h, 2 * k + 1), zeros(h, 2 * k + 1),
-                                     zeros(w, 2 * k + 1), k)
+        cpad = torch.as_tensor((rng.random((h + 2 * k, w + 2 * k)) < 0.01)
+                               .astype(np.float32), device=dev)
+        tabs = [torch.as_tensor(rng.random((n, 2 * k + 1), np.float32),
+                                device=dev) for n in (h, h, w)]
+        before = counts()[0]
+        got = min_haversine_param_cuda(cpad, *tabs, k)
+        assert counts()[0] == before + 1
+        torch.testing.assert_close(
+            got, min_haversine_param_from_padded(cpad, *tabs, k), rtol=0,
+            atol=0)
+    before = counts()
     h, w, nn = 8, 8, ring_limits()[1] + 1     # B4, B5: past the limit
     pads = (zeros(h + 2 * nn, w + 2 * nn), zeros(h + 2 * nn, w + 2 * nn))
     with pytest.raises(ValueError, match=f"NN <= {nn - 1}"):
@@ -534,9 +551,11 @@ def test_min_haversine_kernel_bit_equal_to_plain(name, radius, dev):
 
 #: B3's radii: the small builds' (0, 1, 6, 15), the last and first k the
 #: first design's shared memory held and refused (88, 89), the fine and
-#: 1 km worlds' (93, 155) and a 0.5 km grid's at 54 N (310); the widest
-#: the kernel takes is added in the test.
-B3_RADII = (0, 1, 6, 15, 88, 89, 93, 155, 310)
+#: 1 km worlds' (93, 155), a 0.5 km grid's at 54 N (310), and the large
+#: build's: one past the widest the shared-memory builds hold (355, which
+#: the kernel once refused), a 0.4 km grid's at 54 N (387), 620 and 1000;
+#: the widest of the shared-memory builds is added in the test.
+B3_RADII = (0, 1, 6, 15, 88, 89, 93, 155, 310, 355, 387, 620, 1000)
 #: name -> (nlat, nlon, global lon axis, coast): a field smaller than one
 #: band (10 x 20), exactly one band of 32 columns, a ragged band edge
 #: (37 x 70), a row pitch no multiple of 16 bytes with the field starting
@@ -575,8 +594,9 @@ def _b3_coast(nlat, nlon, kind, rng):
 @pytest.mark.parametrize("case", sorted(B3_CASES))
 @pytest.mark.parametrize("k", B3_RADII + ("max",))
 def test_min_haversine_every_radius(case, k, dev):
-    """B3 bit-equal to its plain version at every radius up to the widest
-    it takes (the first design refused k >= 89), on sub-band, one-band,
+    """B3 bit-equal to its plain version at every radius, its
+    shared-memory builds up to their widest (the first design refused k >=
+    89) and its large build past it (once refused), on sub-band, one-band,
     ragged and misaligned fields, the periodic seam, no coast, all coast
     and coast at the band corners.  Three tables each: a grid's with its
     monotone flags (pass 1 by the nearest coast bit each side, bar a
@@ -750,6 +770,39 @@ def test_halo_kernel_bit_equal_to_plain(name, lat_fill, exact_lon, channels,
         assert halo_exchange_cuda.launches == before + 1
         want = halo_exchange_plain(local, mesh, hy, hx, **kw)
         for g, r in zip(got, want):
+            torch.testing.assert_close(g, r, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rank", [0, 1, 2])
+@pytest.mark.parametrize("lat_fill,exact_lon", HALO_FILLS)
+@pytest.mark.parametrize("channels", [1, 2])
+def test_halo_kernel_process_edges_bit_equal_to_plain(rank, lat_fill,
+                                                      exact_lon, channels,
+                                                      dev):
+    """B6 with a process edge's rows (its third fill, the strips of a
+    multi-process run) against its plain version and against the exchange
+    of the whole mesh on one process, bit for bit: rank ``rank``'s block
+    of a 6 x 3 mesh (15 columns a shard, so rows start at every offset
+    modulo 16 bytes) split over three processes, one launch per
+    exchange."""
+    from tests.test_torch_multihost import process_block
+    shape = (channels, 72, 45) if channels > 1 else (72, 45)
+    field = torch.as_tensor(np.random.default_rng(rank).standard_normal(
+        shape).astype(np.float32), device=dev)
+    one = make_mesh((6, 3), dev)
+    kw = dict(lat_fill=lat_fill, exact_lon=exact_lon)
+    for hy, hx in ((1, 1), (3, 2), (0, 2), (2, 0),
+                   (12, 14 if exact_lon else 15)):
+        local, mesh, edges = process_block(field, (6, 3), 3, rank, hy, dev)
+        before = halo_exchange_cuda.launches
+        got = halo_exchange_cuda(local, mesh, hy, hx, edges=edges, **kw)
+        assert halo_exchange_cuda.launches == before + 1
+        plain = halo_exchange_plain(local, mesh, hy, hx, edges=edges, **kw)
+        whole = halo_exchange_plain(split(field, one), one, hy, hx,
+                                    **kw)[rank * 6:(rank + 1) * 6]
+        for g, p, r in zip(got, plain, whole):
+            torch.testing.assert_close(g, p, rtol=0, atol=0)
             torch.testing.assert_close(g, r, rtol=0, atol=0)
 
 

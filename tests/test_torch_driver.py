@@ -216,8 +216,14 @@ def test_driver_resume_is_bit_equal(tree3, tmp_path, monkeypatch):
 
 
 def test_driver_refuses_multi_process(tree, monkeypatch):
+    """A multi-process launch (WORLD_SIZE > 1) that lacks the rest of the
+    launcher's variables is refused before any file is read, naming them:
+    each process would otherwise run the whole series alone.  The
+    multi-process run itself: ``tests/test_torch_multihost.py``."""
     monkeypatch.setenv("WORLD_SIZE", "4")
-    with pytest.raises(NotImplementedError, match="5.2"):
+    for var in ("RANK", "MASTER_PORT"):
+        monkeypatch.delenv(var, raising=False)
+    with pytest.raises(RuntimeError, match="without RANK, MASTER_PORT"):
         trun.main(str(tree["conf"]), progress=None, device="cpu")
 
 

@@ -11,6 +11,10 @@ package's fused Pallas kernel in interpret mode.  Tolerances: the sign and
 the 12000 km sentinel equal, then rtol 2e-5 / atol 2e-3 km (the two take
 the transcendentals of the winner through different libraries).
 
+The second holds the port's fused and hybrid distances (the routes of
+B3 and B2) against the JAX package's plain one at k = 387, the radius of a
+0.4 km grid, past what both kernels once held on the card.
+
 The others pin ``ops.distance.window_monotone`` (per row of a table: no
 increase from either end of the window to its centre tap), whose flags
 ``device_tables`` hands to B3: against a loop over every tap on the card
@@ -63,6 +67,33 @@ def test_fused_distance_matches_jax_pallas_at_k95():
     ref = np.asarray(jdist.coast_distance(
         jco.get_edges(lsm, ci[0]), lsm, JGrid(lon=lon, lat=lat), 180.0,
         impl="pallas", interpret=True))
+    sent = ref == SENTINEL
+    assert (ref[~sent] > 0).any() and (ref[~sent] < 0).any()  # land and sea
+    np.testing.assert_array_equal(got == SENTINEL, sent)
+    np.testing.assert_array_equal(np.sign(got), np.sign(ref))
+    np.testing.assert_allclose(got[~sent], ref[~sent], rtol=2e-5, atol=2e-3)
+
+
+@pytest.mark.parametrize("impl", ["fused", "hybrid"])
+def test_distances_match_jax_xla_at_k387(impl):
+    """The port's fused and hybrid distances against the JAX package's
+    ``coast_distance(impl='xla')`` at k = 387, the radius of a 0.4 km grid
+    (0.0036 degrees from 54 N), past the widest that B3's shared-memory
+    builds (354) and B2's staged build (175) hold: a 16 x 400 world, whose
+    400 columns let ``effective_radius`` reach 387."""
+    nlat, nlon, spacing = 16, 400, 0.0036
+    lat, lon = _grid(nlat, nlon, 54.0, 54.0 - (nlat - 1) * spacing, 0.0,
+                     nlon * spacing)
+    lsm, *_, ci = make_world(nlat, nlon, 1, 1, seed=3)
+    grid = Grid(lon=lon, lat=lat)
+    k = tdist.effective_radius(grid, 180.0)
+    assert k == 387
+    got = tdist.coast_distance(
+        tco.get_edges(torch.as_tensor(lsm), torch.as_tensor(ci[0])),
+        torch.as_tensor(lsm), grid, 180.0, impl=impl).numpy()
+    ref = np.asarray(jdist.coast_distance(
+        jco.get_edges(lsm, ci[0]), lsm, JGrid(lon=lon, lat=lat), 180.0,
+        impl="xla"))
     sent = ref == SENTINEL
     assert (ref[~sent] > 0).any() and (ref[~sent] < 0).any()  # land and sea
     np.testing.assert_array_equal(got == SENTINEL, sent)

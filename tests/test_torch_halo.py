@@ -22,6 +22,7 @@ from seabreeze_param_tpu_torch.ops.indexing import pad2d
 from seabreeze_param_tpu_torch.parallel import halo as thalo
 from seabreeze_param_tpu_torch.parallel.mesh import (ShardMesh, gather,
                                                      make_mesh, split)
+from tests.test_torch_multihost import process_block
 
 FILLS = [("clamp", True), ("clamp", False), ("zero", False)]
 MESHES = [(2, 4), (4, 2), (1, 8), (8, 1)]
@@ -105,6 +106,33 @@ def test_one_by_one_mesh_equals_single_device_pad(lat_fill, exact_lon):
     want = (pad2d(field, 4, 4, exact_lon=exact_lon) if lat_fill == "clamp"
             else pad_coast(field, 4))
     torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("rank", [0, 1, 2])
+@pytest.mark.parametrize("lat_fill,exact_lon", FILLS)
+@pytest.mark.parametrize("channels", [1, 2])
+def test_exchange_with_process_edges_equals_one_mesh(rank, lat_fill,
+                                                     exact_lon, channels):
+    """A process's block of a 6 x 3 mesh split over three processes,
+    given its neighbours' boundary rows (``edges``): the plain exchange and
+    B6's wrapper (its plain version here) equal the one-process exchange of
+    the whole mesh on that block's shards, bit for bit, at 1-wide, uneven,
+    one-sided and full-shard widths; the fill stays at the global edges
+    only (rank 0's top, rank 2's bottom)."""
+    shape = (channels, 72, 45) if channels > 1 else (72, 45)
+    field = torch.tensor(_field(shape, seed=rank))
+    one = make_mesh((6, 3), "cpu")
+    kw = dict(lat_fill=lat_fill, exact_lon=exact_lon)
+    for hy, hx in ((1, 1), (3, 2), (0, 2), (2, 0), (12, 14)):
+        want = thalo.halo_exchange_plain(split(field, one), one, hy, hx,
+                                         **kw)[rank * 6:(rank + 1) * 6]
+        local, mesh, edges = process_block(field, (6, 3), 3, rank, hy)
+        for got in (thalo.halo_exchange_plain(local, mesh, hy, hx,
+                                              edges=edges, **kw),
+                    halo_exchange_cuda(local, mesh, hy, hx, edges=edges,
+                                       **kw)):
+            for g, r in zip(got, want):
+                assert torch.equal(g, r), (hy, hx)
 
 
 def test_width_guard_and_refusals():
