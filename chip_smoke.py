@@ -646,8 +646,8 @@ def regional_diag(world, what, least_nn):
                 triggers=int(((sb != MISSING) & (sb != 0)).sum()))
 
 
-def ring_alone(world, nn, what, *, time_b1=True, time_b4=False):
-    """B1, B4 and B5 alone on step 2's inputs of a regional world padded at
+def ring_alone(world, nn, what, *, time_b1=True, time_b4=False, step=2):
+    """B1, B4 and B5 alone on ``step``'s inputs of a regional world padded at
     ``nn``, each bit-equal to its plain version; B1 (and, with ``time_b4``,
     B4) timed.  Returns {"b1": ..., "b4": ...} of the timed kernels and the
     coastal cells' latch radii."""
@@ -667,9 +667,10 @@ def ring_alone(world, nn, what, *, time_b1=True, time_b4=False):
     D = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
     params = Params()
     pipe = TriggerPipeline(grid, device=dev)
-    cd = pipe.distance_field(D(lsm), D(ci[2]))
+    cd = pipe.distance_field(D(lsm), D(ci[step]))
     _, ws_new, wd_new, t0_pad, cd_pad = prepare_step(
-        D(theta[2]), D(u[2]), D(v[2]), cd, D(z), D(std), D(pres), params, nn)
+        D(theta[step]), D(u[step]), D(v[step]), cd, D(z), D(std), D(pres),
+        params, nn)
     rng = np.random.default_rng(1)
     ws0 = D((5 + rng.random((nlat, nlon))).astype(np.float32))
     wd0 = D((360 * rng.random((nlat, nlon)) - 180).astype(np.float32))
@@ -1824,16 +1825,26 @@ def wide_world(spacing):
 
 def wide_kernels(world, what):
     """B3 and B2 alone on step 0 of a wide-radius world, each bit-equal to
-    its plain version and timed.  The bounds count, as :func:`b3_bound`
-    does, the taps of the outputs in reach only."""
+    its plain version with the rows' flags of the tables and without, and
+    timed with them.  Beside each: the taps a warp takes in the host model
+    of their schedule (``tools/pruned_model.py::pass2_centre_out``, which
+    must give the same output).  The bounds count bytes (inputs read once,
+    the tables and flags included, the output written once) against
+    operations: 3 a tap of the least taps an exact exit needs, each column
+    on its own (``pass2_least_taps``: no warp, group or repeat; B3's rows
+    whose window holds no coast take none), and 2 a padded cell for B3's
+    pass 1.  ``all_taps_*`` is the operations' figure where every output
+    in reach takes all 2k+1 taps (the bound before the early exit).  Each
+    entry keeps its kernel's call under ``call``."""
     import torch
     from seabreeze_param_tpu_torch.models.pipeline import TriggerPipeline
     from seabreeze_param_tpu_torch.ops.coastline import get_edges
     from seabreeze_param_tpu_torch.ops.cuda.distance_kernel import (
         min_haversine_limits, min_haversine_param_cuda, pass2_min_cuda,
-        pass2_min_limits)
+        pass2_min_limits, pruned_layout)
     from seabreeze_param_tpu_torch.ops.distance import (
         min_haversine_param_from_padded, pad_coast, pass1_extrema, pass2_min)
+    from tools.pruned_model import pass2_centre_out, pass2_least_taps
     grid, (lsm, *_, ci) = world
     dev = torch.device("cuda")
     pipe = TriggerPipeline(grid, device=dev)
@@ -1843,102 +1854,212 @@ def wide_kernels(world, what):
     L, C = (torch.as_tensor(a, device=dev) for a in (lsm, ci[0]))
     cpad = pad_coast(get_edges(L, C), k)
     sdphi2, po, sdlam2 = tabs
+    rows = tabs.row_monotone
+    if not bool(rows.all()):
+        raise AssertionError(f"{what}: a row of sdphi2 lacks the flag")
 
-    def b3():
+    def b3(flags=rows):
         return min_haversine_param_cuda(cpad, *tabs, k,
-                                        monotone=tabs.monotone)
+                                        monotone=tabs.monotone,
+                                        row_monotone=flags)
 
     mmin = pass1_extrema(cpad, sdlam2, k)
 
-    def b2():
-        return pass2_min_cuda(mmin, sdphi2, po, k)
+    def b2(flags=rows):
+        return pass2_min_cuda(mmin, sdphi2, po, k, row_monotone=flags)
 
     amin = b3()
-    err3 = bit_equal(amin, min_haversine_param_from_padded(cpad, *tabs, k),
-                     f"{what} B3")
-    err2 = bit_equal(b2(), pass2_min(mmin, sdphi2, po, k), f"{what} B2")
+    ref = min_haversine_param_from_padded(cpad, *tabs, k)
+    err3 = bit_equal(amin, ref, f"{what} B3")
+    bit_equal(b3(None), ref, f"{what} B3 without row flags")
+    ref2 = pass2_min(mmin, sdphi2, po, k)
+    err2 = bit_equal(b2(), ref2, f"{what} B2")
+    bit_equal(b2(None), ref2, f"{what} B2 without row flags")
     bit_equal(b2(), amin, f"{what} B2 vs B3")
-    nbytes, ops = b3_bound(cpad, amin, k)
-    none = "none: no PyTorch call runs a masked min over a separable window"
-    t3 = dict(max_abs_err=err3, k=k, **timing(
-        b3, lambda: min_haversine_param_from_padded(cpad, *tabs, k), nbytes,
-        ops, library_note=none, plain_queued=True))
     h, w = amin.shape
     nwin = 2 * k + 1
     reach = int((amin < float(BIG) / 2).sum())
-    t2 = dict(max_abs_err=err2, k=k, **timing(
-        b2, lambda: pass2_min(mmin, sdphi2, po, k),
-        4 * (mmin.numel() + h * w + 2 * h * nwin), 3 * nwin * reach,
-        library_note="none: no single PyTorch call takes a min over a "
-                     "weighted lat window", plain_queued=True))
-    return t3, t2
+    cpl, group = pruned_layout()
+    m_h, t_h, q_h, rows_h = (a.cpu().numpy() for a in (mmin, sdphi2, po,
+                                                        rows))
+    res = []
+    for name, kernel, plain, skip, nbytes, pass1_ops, none in (
+            ("B3", b3, lambda: min_haversine_param_from_padded(
+                cpad, *tabs, k), True,
+             4 * (cpad.numel() + h * w + (2 * h + w) * nwin) + h + w,
+             2 * (h + 2 * k) * w, "none: no PyTorch call runs a masked "
+             "min over a separable window"),
+            ("B2", b2, lambda: pass2_min(mmin, sdphi2, po, k), False,
+             4 * (mmin.numel() + h * w + 2 * h * nwin) + h, 0,
+             "none: no single PyTorch call takes a min over a weighted lat "
+             "window")):
+        model, taps = pass2_centre_out(m_h, t_h, q_h, k, rows_h,
+                                       band=32 * cpl, group=group,
+                                       skip_empty=skip)
+        least_out, least = pass2_least_taps(m_h, t_h, q_h, k, rows_h,
+                                            skip_empty=skip)
+        for out, model_name in ((model, "schedule"), (least_out, "least")):
+            if not np.array_equal(out, amin.cpu().numpy()):
+                raise AssertionError(f"{what} {name}: the host model's "
+                                     f"({model_name}) output differs")
+        all_ops = pass1_ops + 3 * nwin * reach
+        res.append(dict(
+            max_abs_err=err3 if name == "B3" else err2, k=k, call=kernel,
+            taps_per_warp=float(taps.mean()), taps_max=int(taps.max()),
+            least_taps=float(least.mean()), all_taps=nwin,
+            all_taps_bound_ms=all_ops / PEAK_F32 * 1e3,
+            **timing(kernel, plain, nbytes, pass1_ops + 3 * int(least.sum()),
+                     library_note=none, plain_queued=True)))
+    return res
 
 
-def phase_wide(out):
-    """The distance kernels past their old limits (B3 refused k > 354, B2
-    raised for k > 175): B3's large build and B2's unstaged build alone at
-    k = 387 and 620, bit-equal to plain and timed; ``diag`` on the 0.4 km
-    world (k = 387) on the kernel path against plain (final ws/wd
-    bit-equal); and ``TriggerPipeline.run`` there with the hybrid distance
-    (B2) against the fused one (B3)."""
+def fmt_wide(t):
+    return (f"{fmt_timing(t)}; taps a warp {t['taps_per_warp']:.1f} (most "
+            f"{t['taps_max']}) of {t['all_taps']} in the host model of the "
+            f"schedule, least taps a cell {t['least_taps']:.1f} (the "
+            f"bound's); all-taps figure {t['all_taps_bound_ms'] * 1e3:.1f} "
+            f"us")
+
+
+def resident_run(world, impl, reps=1):
+    """``TriggerPipeline(distance_impl=impl).run`` over a regional world with
+    its inputs on the card: after a warm-up, ``reps`` runs, the launches of
+    the first (B1 and the distance kernel once a step) and the median
+    ms/step."""
     import torch
     from seabreeze_param_tpu_torch.core.state import TriggerState
     from seabreeze_param_tpu_torch.models.pipeline import TriggerPipeline
-
-    b3, b2 = {}, {}
-    for k, spacing in WIDE_WORLDS:
-        t3, t2 = wide_kernels(wide_world(spacing), f"k={k}")
-        if t3["k"] != k:
-            raise AssertionError(f"wide world at {spacing}: k = {t3['k']}")
-        b3[f"k{k}"], b2[f"k{k}"] = t3, t2
-        log(f"# wide radius k={k} ({FINE_N}x{FINE_N} at {spacing} deg from "
-            f"54 N): B3 large build bit-equal to plain, {fmt_timing(t3)}; "
-            f"B2 unstaged build bit-equal to plain, {fmt_timing(t2)} "
-            f"(plain: events around calls)")
-    k, spacing = WIDE_WORLDS[0]
-    world = wide_world(spacing)
-    dg = regional_diag(world, "0.4 km", 1)
     grid, (lsm, z, std, pres, theta, u, v, ci) = world
     T, nlat, nlon = theta.shape
     dev = torch.device("cuda")
     d = [torch.as_tensor(a, device=dev) for a in (theta, u, v, lsm, z, std,
                                                     pres, ci)]
+    pipe = TriggerPipeline(grid, device=dev, distance_impl=impl)
+
+    def run():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = pipe.run(TriggerState.zeros((nlat, nlon), dev), *d[:7],
+                     ci_t=d[7])
+        torch.cuda.synchronize()
+        return r, (time.perf_counter() - t0) / T * 1e3
+
+    run()                                       # warm-up
+    zero_launches()
+    result, first = run()
+    launches = {n: c for n, c in read_launches().items() if c}
+    kern = {"fused": "min_haversine", "hybrid": "pass2_min"}[impl]
+    want = {kern: T, "ring_trigger_stacked": T}
+    if launches != want:
+        raise AssertionError(f"{impl} run launches {launches}, want {want}")
+    times = [first] + [run()[1] for _ in range(reps - 1)]
+    return dict(result=result, launches=launches,
+                ms_per_step=float(np.median(times)))
+
+
+def phase_wide(out):
+    """The distance kernels past their old limits (B3 refused k > 354, B2
+    raised for k > 175): B3's large build and B2's unstaged build alone at
+    k = 387 and 620, bit-equal to plain and timed (:func:`wide_kernels`);
+    ``diag`` on the 0.4 km world (k = 387) on the kernel path against plain
+    (final ws/wd bit-equal); B1, B4 and B5 alone at its NN, B1 timed; and
+    ``TriggerPipeline.run`` there with the hybrid distance (B2) against the
+    fused one (B3), with each kernel's share of the fused run's step."""
+    b3, b2, calls = {}, {}, {}
+    for k, spacing in WIDE_WORLDS:
+        t3, t2 = wide_kernels(wide_world(spacing), f"k={k}")
+        if t3["k"] != k:
+            raise AssertionError(f"wide world at {spacing}: k = {t3['k']}")
+        b3[f"k{k}"], b2[f"k{k}"] = t3, t2
+        calls[k] = {"B3 large": t3.pop("call"), "B2 unstaged": t2.pop("call")}
+        log(f"# wide radius k={k} ({FINE_N}x{FINE_N} at {spacing} deg from "
+            f"54 N): B3 large build bit-equal to plain (with and without "
+            f"row flags), {fmt_wide(t3)}; B2 unstaged build bit-equal to "
+            f"plain (with and without row flags), {fmt_wide(t2)} (plain: "
+            f"events around calls)")
+    k, spacing = WIDE_WORLDS[0]
+    world = wide_world(spacing)
+    dg = regional_diag(world, "0.4 km", 1)
+    grid, (lsm, z, std, pres, theta, u, v, ci) = world
+    T, nlat, nlon = theta.shape
+    alone = ring_alone(world, dg["nn"], "0.4 km", step=T - 1)
     res, launches, ms = {}, {}, {}
-    for impl, kern in (("fused", "min_haversine"), ("hybrid", "pass2_min")):
-        pipe = TriggerPipeline(grid, device=dev, distance_impl=impl)
-
-        def run():
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            r = pipe.run(TriggerState.zeros((nlat, nlon), dev), *d[:7],
-                         ci_t=d[7])
-            torch.cuda.synchronize()
-            return r, (time.perf_counter() - t0) / T * 1e3
-
-        run()                                   # warm-up
-        zero_launches()
-        res[impl], ms[impl] = run()
-        launches[impl] = {n: c for n, c in read_launches().items() if c}
-        want = {kern: T, "ring_trigger_stacked": T}
-        if launches[impl] != want:
-            raise AssertionError(f"0.4 km {impl} run launches "
-                                 f"{launches[impl]}, want {want}")
+    for impl in ("fused", "hybrid"):
+        r = resident_run(world, impl)
+        res[impl], launches[impl], ms[impl] = (r["result"], r["launches"],
+                                               r["ms_per_step"])
     (fstate, fouts), (hstate, houts) = res["fused"], res["hybrid"]
     for key in fouts:
         bit_equal(houts[key], fouts[key], f"0.4 km hybrid vs fused {key}")
     for key, x in final_fields(hstate).items():
         bit_equal(x, final_fields(fstate)[key], f"0.4 km hybrid final {key}")
+    # each kernel's device time a step over the fused run's ms/step
+    shares = {"min_haversine_large": b3[f"k{k}"]["device_ms"] / ms["fused"],
+              "ring_trigger_stacked_large": alone["b1"]["device_ms"]
+              / ms["fused"]}
     log(f"# 0.4 km regional {nlat}x{nlon} at {spacing} deg (k={k}, NN="
         f"{dg['nn']}), {nvidia_smi()}: diag T={T} kernel path "
         f"{dg['ms_per_step']:.3f} ms/step, plain path "
         f"{dg['plain_ms_per_step']:.3f}; launches {dg['launches']}; matches "
         f"plain (max |diff| {dg['max_abs_err']:.3g}, final ws/wd "
-        f"bit-equal); TriggerPipeline.run fused {ms['fused']:.3f} ms/step, "
-        f"hybrid {ms['hybrid']:.3f}, launches {launches}, bit-equal")
+        f"bit-equal); B1, B4, B5 bit-equal to plain on one step; B1 at NN="
+        f"{dg['nn']} {fmt_timing(alone['b1'])} (plain: events around "
+        f"calls); TriggerPipeline.run fused {ms['fused']:.3f} ms/step, "
+        f"hybrid {ms['hybrid']:.3f}, launches {launches}, bit-equal; share "
+        f"of the fused step: " + ", ".join(
+            f"{n} {v:.3f}" for n, v in shares.items()))
     out.update(launches=dg["launches"], nn=dg["nn"],
                ms_per_step=dg["ms_per_step"],
                plain_ms_per_step=dg["plain_ms_per_step"],
-               run_launches=launches, run_ms_per_step=ms, b3=b3, b2=b2)
+               run_launches=launches, run_ms_per_step=ms, b3=b3, b2=b2,
+               b1=alone["b1"], step_shares=shares, calls=calls[k])
+
+
+#: The device kernels one call of each wide-radius build starts: B3's large
+#: build the columns' monotone pieces, pass 1 and pass 2; B2's pass 2.
+WIDE_KERNELS_A_CALL = {"B3 large": 3, "B2 unstaged": 1}
+
+
+def device_kernels(fn):
+    """The names of the device kernels one call of ``fn`` runs, as
+    ``torch.profiler`` sees them (copies and fills left out), or None where
+    it sees no device activity."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    seen = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not seen:
+        return None
+    return [n for n in seen if not n.startswith(("Memcpy", "Memset"))]
+
+
+def phase_kernels_a_call(wide):
+    """The kernels a call of B3's large build and of B2's unstaged build
+    starts at the 0.4 km world's k, counted under ``torch.profiler`` (last
+    of the phases, so that no timed phase runs after the profiler).  Fails
+    where the count differs from :data:`WIDE_KERNELS_A_CALL`."""
+    import re
+    counts = {}
+    for name, fn in wide.pop("calls").items():
+        seen = device_kernels(fn)
+        if seen is None:
+            counts[name] = ("not measured (the profiler saw no device "
+                            "activity)")
+            continue
+        if len(seen) != WIDE_KERNELS_A_CALL[name]:
+            raise AssertionError(f"{name}: a call ran {len(seen)} device "
+                                 f"kernels: {seen}")
+        short = [m.group(1) if m else n[:40] for m, n in (
+            (re.search(r"(\w+)(?:<[^>]*>)?\(", n), n) for n in seen)]
+        counts[name] = f"{len(seen)} ({', '.join(short)})"
+    log(f"# wide radius k={WIDE_WORLDS[0][0]}: device kernels a call under "
+        f"torch.profiler: " + "; ".join(f"{n} {c}" for n, c in counts.items()))
 
 
 def spawn_ranks(case, tmp, *args):
@@ -2209,15 +2330,18 @@ def main():
     phase_dummy_sharded(dummy_sharded)
     phase_driver(driver)
     phase_multiprocess(multiprocess)
+    phase_kernels_a_call(wide)
 
     def per_kernel(name):
         return {g: padded[g][name] for g in padded}
 
     src = "seabreeze_param_tpu_torch/csrc/"
     pal = "seabreeze_param_tpu/ops/pallas/"
+    # the numbers measured in this run, the bound computed from its
+    # inputs, and the size's radii; derived figures (shares, B1's coastal
+    # fraction, modelled taps) stay in the log lines above
     keys = ("max_abs_err", "device_ms", "call_ms", "plain_ms", "bound_ms",
-            "bound_by", "share_of_bound", "library_ms", "library", "f", "nn",
-            "k", "hybrid_ms")
+            "bound_by", "library_ms", "library", "nn", "k", "hybrid_ms")
     kernels = []
 
     def dist_row(name, impl):
@@ -2249,11 +2373,13 @@ def main():
              sharded["launches"]["overlap"]["halo_exchange"],
              f"sharded: ShardedPipeline.run on {SHARD_MESH}, overlapped"),
             ("ring_trigger_stacked_large", "ring_trigger.cu",
-             "ring_kernel.py:694", {"fine": fine["b1"], "km": km["b1"]},
+             "ring_kernel.py:694",
+             {"fine": fine["b1"], "km": km["b1"], "wide": wide["b1"]},
              fine["launches"]["ring_trigger_stacked"],
              f"fine regional diag, NN = {fine['nn']} >= "
              f"{fine['large_from']}: B1's large build (km: the 1 km "
-             f"world's diag, NN = {km['nn']}, {km['launches']})"),
+             f"world's diag, NN = {km['nn']}, {km['launches']}; wide: the "
+             f"0.4 km world's, NN = {wide['nn']}, {wide['launches']})"),
             ("ring_trigger_padded_large", "ring_trigger.cu",
              "ring_kernel.py:837", {"fine": fine["b4"]},
              fine["coupled_launches"]["ring_trigger_padded"],

@@ -41,17 +41,19 @@ _F = ctypes.c_float
 #: C signatures of the launchers; each returns ``cudaGetLastError()``
 #: (the ``*_limits`` functions, which read constants, return 0).
 SIGNATURES = {
-    # mmin, sdphi2, po, out, h, w, k, stream
-    "sbz_pass2_min": (_P, _P, _P, _P, _I, _I, _I, _P),
+    # mmin, sdphi2, po, row_mono, out, h, w, k, stream
+    "sbz_pass2_min": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
     # &max_staged_k: the widest k of the launcher's staged build
     "sbz_pass2_min_limits": (_P,),
+    # &cols_per_lane, &group: the unstaged build's layout
+    "sbz_pass2_min_layout": (_P, _P),
     # cpad, sdphi2, po, sdlam2, col_mono, out, h, w, k, stream
     "sbz_min_haversine": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     # &max_k: the widest k the launcher above takes
     "sbz_min_haversine_limits": (_P,),
     # h, w, k, &floats: the device scratch of the large build below
     "sbz_min_haversine_scratch": (_I, _I, _I, _P),
-    # cpad, sdphi2, po, sdlam2, col_mono, out, h, w, k, scratch, stream:
+    # cpad, sdphi2, po, sdlam2, row_mono, out, h, w, k, scratch, stream:
     # the large build, k past the limit above
     "sbz_min_haversine_large": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P),
     # t0_pad, cd_pad, cd, ws_new, wd_new, ws_state, wd_state, ever,

@@ -3,14 +3,22 @@
 
 * B2 :func:`pass2_min_cuda` (``csrc/pass2_min.cu``, replaces
   ``pass2_min_pallas``): pass 2 of the separable minimum; plain version
-  ``ops.distance.pass2_min``; every radius (an unstaged build past
-  :func:`pass2_min_limits`);
+  ``ops.distance.pass2_min``; every radius (past
+  :func:`pass2_min_limits` an unstaged build, one warp per row visiting
+  the taps centre-out with an exact early exit, ``csrc/pass2_pruned.cuh``);
 * B3 :func:`min_haversine_param_cuda` (``csrc/min_haversine.cu``, replaces
   ``min_haversine_param_pallas``): both passes fused, each block sweeping
   a band of columns; plain version
-  ``ops.distance.min_haversine_param_from_padded``; every radius (the
-  large build, its ring in device scratch, past
-  :func:`min_haversine_limits`).
+  ``ops.distance.min_haversine_param_from_padded``; every radius (past
+  :func:`min_haversine_limits` the large build: each column's monotone
+  pieces, pass 1 once per padded row into device scratch, then B2's
+  unstaged pass 2).
+
+Both take the ``row_monotone`` flags of ``ops.distance.DistanceTables``:
+rows of sdphi2 that do not increase from either end of the window to its
+centre, where the wide-radius pass 2 may stop early.  They hold only
+because ``po >= 0`` and ``Mmin >= 0`` (the tables' and pass 1's own
+values); ``None`` runs every tap, with the same result.
 """
 from __future__ import annotations
 
@@ -23,14 +31,24 @@ from ..distance import min_haversine_param_from_padded, pass2_min
 from . import _build
 
 
-def pass2_min_cuda(Mmin, sdphi2, po, k: int):
+def _flags(t, name, n, dev):
+    """The data pointer of a uint8 flag tensor of length ``n``, or None."""
+    if t is None:
+        return None
+    _build.require(t, name, (n,), dev, torch.uint8)
+    return t.data_ptr()
+
+
+def pass2_min_cuda(Mmin, sdphi2, po, k: int, *, row_monotone=None):
     """amin (h, w) = min over the lat window of sdphi2 + po * Mmin.
 
-    ``Mmin`` (h+2k, w), ``sdphi2``/``po`` (h, 2k+1), float32, contiguous.
-    A CUDA tensor launches the kernel on the current stream (its staged
-    build up to :func:`pass2_min_limits`, the unstaged one past it); a CPU
-    tensor takes the plain version.  Each launch adds one to
-    ``pass2_min_cuda.launches``.
+    ``Mmin`` (h+2k, w), ``sdphi2``/``po`` (h, 2k+1), float32, contiguous;
+    ``row_monotone``: the rows' flags of ``ops.distance.DistanceTables``
+    (uint8, (h,)) or None (every tap, the same result).  A CUDA tensor
+    launches the kernel on the current stream (its staged build up to
+    :func:`pass2_min_limits`, the unstaged one past it, which alone uses
+    the flags); a CPU tensor takes the plain version.  Each launch adds
+    one to ``pass2_min_cuda.launches``.
     """
     k = int(k)
     if Mmin.device.type == "cpu":
@@ -39,11 +57,12 @@ def pass2_min_cuda(Mmin, sdphi2, po, k: int):
     _build.require(Mmin, "Mmin", (h + 2 * k, w), Mmin.device)
     _build.require(sdphi2, "sdphi2", (h, 2 * k + 1), Mmin.device)
     _build.require(po, "po", (h, 2 * k + 1), Mmin.device)
+    rows = _flags(row_monotone, "row_monotone", h, Mmin.device)
     out = torch.empty((h, w), dtype=torch.float32, device=Mmin.device)
     lib = _build.load()
     with torch.cuda.device(Mmin.device):
         err = lib.sbz_pass2_min(
-            Mmin.data_ptr(), sdphi2.data_ptr(), po.data_ptr(),
+            Mmin.data_ptr(), sdphi2.data_ptr(), po.data_ptr(), rows,
             out.data_ptr(), h, w, k, torch.cuda.current_stream().cuda_stream)
     _build.check(err, "pass2_min_cuda")
     pass2_min_cuda.launches += 1
@@ -69,29 +88,46 @@ def pass2_min_limits() -> int:
 
 
 @functools.cache
+def pruned_layout() -> tuple[int, int]:
+    """``(cols_per_lane, group)`` of the wide-radius builds' pass 2
+    (``csrc/pass2_pruned.cuh``): a warp owns 32 * cols_per_lane columns of
+    a row and votes on its early exit every ``group`` steps of j.  Read
+    from the built kernels, which it builds at the first call."""
+    vals = [ctypes.c_int() for _ in range(2)]
+    _build.load().sbz_pass2_min_layout(*(ctypes.byref(v) for v in vals))
+    return tuple(v.value for v in vals)
+
+
+@functools.cache
 def min_haversine_limits() -> int:
     """The widest radius k of kernel B3's builds that stage in shared
     memory (MAX_K in csrc/min_haversine.cu: their shared memory grows
-    linearly in k); wider k runs the large build, whose ring lives in
-    device scratch.  Read from the built kernels, which it builds at the
-    first call."""
+    linearly in k); wider k runs the large build, pass 1 into device
+    scratch and then the pass 2 of ``csrc/pass2_pruned.cuh``.  Read from
+    the built kernels, which it builds at the first call."""
     return _read_limit("sbz_min_haversine_limits")
 
 
 def min_haversine_param_cuda(cpad, sdphi2, po, sdlam2, k: int, *,
-                             monotone=None):
+                             monotone=None, row_monotone=None):
     """amin (h, w): the winning haversine parameter over the (2k+1)^2
     window, BIG where no coast cell is in reach.
 
     ``cpad`` (h+2k, w+2k) from ``ops.distance.pad_coast``; ``sdphi2``/``po``
     (h, 2k+1), ``sdlam2`` (w, 2k+1) from ``ops.distance.distance_tables``;
-    float32, contiguous.  ``monotone``: the flags of
+    float32, contiguous.  ``monotone``: the columns' flags of
     ``ops.distance.DistanceTables`` (uint8, (w,)), or None, which takes no
     column to have the property (the kernel's loop over every coast bit of
-    the window, the same result).  A CUDA tensor launches the kernel on the
-    current stream (counted in ``min_haversine_param_cuda.launches``): k
-    past :func:`min_haversine_limits` takes the large build, with device
-    scratch allocated here.  A CPU tensor takes the plain version.
+    the window, the same result); only the builds up to
+    :func:`min_haversine_limits` read it, and the large build ignores it
+    unchecked (it finds each column's monotone pieces itself).
+    ``row_monotone``: the rows' flags (uint8, (h,)), which only the large
+    build's pass 2 reads, or None (every tap, the same result).  A CUDA
+    tensor launches the kernel on the current stream (counted once a call
+    in ``min_haversine_param_cuda.launches``): k past
+    :func:`min_haversine_limits` takes the large build, three launches
+    (the columns' pieces, pass 1, pass 2), with device scratch allocated
+    here.  A CPU tensor takes the plain version.
     """
     k = int(k)
     if cpad.device.type == "cpu":
@@ -102,18 +138,18 @@ def min_haversine_param_cuda(cpad, sdphi2, po, sdlam2, k: int, *,
     _build.require(sdphi2, "sdphi2", (h, 2 * k + 1), dev)
     _build.require(po, "po", (h, 2 * k + 1), dev)
     _build.require(sdlam2, "sdlam2", (w, 2 * k + 1), dev)
-    if monotone is not None:
-        _build.require(monotone, "monotone", (w,), dev, torch.uint8)
+    large = k > min_haversine_limits()
+    cols = None if large else _flags(monotone, "monotone", w, dev)
+    rows = _flags(row_monotone, "row_monotone", h, dev)
     out = torch.empty((h, w), dtype=torch.float32, device=dev)
     lib = _build.load()
-    args = (cpad.data_ptr(), sdphi2.data_ptr(), po.data_ptr(),
-            sdlam2.data_ptr(),
-            None if monotone is None else monotone.data_ptr(),
-            out.data_ptr(), h, w, k)
+    tabs = (cpad.data_ptr(), sdphi2.data_ptr(), po.data_ptr(),
+            sdlam2.data_ptr())
+    shape = (out.data_ptr(), h, w, k)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        if k <= min_haversine_limits():
-            err = lib.sbz_min_haversine(*args, stream)
+        if not large:
+            err = lib.sbz_min_haversine(*tabs, cols, *shape, stream)
         else:
             floats = ctypes.c_longlong()
             err = lib.sbz_min_haversine_scratch(h, w, k,
@@ -121,8 +157,8 @@ def min_haversine_param_cuda(cpad, sdphi2, po, sdlam2, k: int, *,
             if not err:
                 scratch = torch.empty(floats.value, dtype=torch.float32,
                                       device=dev)
-                err = lib.sbz_min_haversine_large(*args, scratch.data_ptr(),
-                                                  stream)
+                err = lib.sbz_min_haversine_large(
+                    *tabs, rows, *shape, scratch.data_ptr(), stream)
     _build.check(err, "min_haversine_param_cuda")
     min_haversine_param_cuda.launches += 1
     return out

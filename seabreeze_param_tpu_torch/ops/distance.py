@@ -145,41 +145,50 @@ def window_monotone(table, k: int):
     left of the centre and at or right of it, which kernel B3 finds by a
     scan of coast bits instead of 2k+1 taps.  A global uniform grid's every
     column has it, a regional grid's every column but those within k of its
-    seam (where the periodic wrap jumps by the domain's width)."""
+    seam (where the periodic wrap jumps by the domain's width).  Where a row
+    of sdphi2 has it, the wide-radius builds' pass 2 may stop once no
+    column's minimum is above the least sdphi2 still to come
+    (``csrc/pass2_pruned.cuh``); a grid with monotone latitudes has it in
+    every row, the rows out of range (BIG) at the lat edges included."""
     t = np.asarray(table)
     return ((np.diff(t[:, :k + 1], axis=1) <= 0).all(axis=1)
             & (np.diff(t[:, k:], axis=1) >= 0).all(axis=1))
 
 
 class DistanceTables(tuple):
-    """``(sdphi2, po, sdlam2)`` as float32 tensors on one device, with
-    ``monotone``: a uint8 tensor of length w, nonzero where the column's
-    row of sdlam2 has the property of :func:`window_monotone`.  Unpacks as
-    the three tables."""
+    """``(sdphi2, po, sdlam2)`` as float32 tensors on one device, with the
+    flags of :func:`window_monotone` as uint8 tensors: ``monotone`` (length
+    w, nonzero where the column's row of sdlam2 has the property) and
+    ``row_monotone`` (length h, the rows of sdphi2).  Unpacks as the three
+    tables."""
 
-    def __new__(cls, sdphi2, po, sdlam2, monotone):
+    def __new__(cls, sdphi2, po, sdlam2, monotone, row_monotone):
         tabs = super().__new__(cls, (sdphi2, po, sdlam2))
         tabs.monotone = monotone
+        tabs.row_monotone = row_monotone
         return tabs
 
     def select(self, rows, cols):
         """The tables of a block of the field: the rows ``rows`` of sdphi2
-        and po and the columns ``cols`` (rows of sdlam2, with their flags),
-        each a slice or an index tensor."""
+        and po (with their flags) and the columns ``cols`` (rows of sdlam2,
+        with their flags), each a slice or an index tensor."""
         def pick(t, idx):
             return t[idx] if isinstance(idx, slice) else t.index_select(0, idx)
         sdphi2, po, sdlam2 = self
         return DistanceTables(pick(sdphi2, rows), pick(po, rows),
-                              pick(sdlam2, cols), pick(self.monotone, cols))
+                              pick(sdlam2, cols), pick(self.monotone, cols),
+                              pick(self.row_monotone, rows))
 
 
 def device_tables(grid: Grid, k: int, device):
     """:func:`distance_tables` as a :class:`DistanceTables` on ``device``,
-    its monotone flags checked here, once."""
+    the monotone flags of its columns (sdlam2) and rows (sdphi2) checked
+    here, once."""
     sdphi2, po, sdlam2 = distance_tables(grid, k)
-    flags = window_monotone(sdlam2, k).astype(np.uint8)
+    cols = window_monotone(sdlam2, k).astype(np.uint8)
+    rows = window_monotone(sdphi2, k).astype(np.uint8)
     return DistanceTables(*(torch.as_tensor(t, device=device)
-                            for t in (sdphi2, po, sdlam2, flags)))
+                            for t in (sdphi2, po, sdlam2, cols, rows)))
 
 
 IMPLS = ("auto", "hybrid", "fused", "plain")
@@ -228,19 +237,22 @@ def coast_distance_from_padded(cpad, lsm, tables, k: int,
                                maxdist: float = 180.0, *, impl: str = "auto"):
     """The signed distance of one block from its k-padded coast ``cpad``
     (h+2k, w+2k) and the block's own table rows and columns ``tables`` =
-    (sdphi2 (h, 2k+1), po (h, 2k+1), sdlam2 (w, 2k+1)), contiguous; ``impl``
-    as in :func:`coast_distance`.  A decomposed run's shards call it with
+    (sdphi2 (h, 2k+1), po (h, 2k+1), sdlam2 (w, 2k+1)), contiguous, with
+    the flags of a :class:`DistanceTables` where it is one; ``impl`` as in
+    :func:`coast_distance`.  A decomposed run's shards call it with
     an exchanged or apron-computed pad and their slices of the tables."""
     sdphi2, po, sdlam2 = tables
+    rows = getattr(tables, "row_monotone", None)
     impl = resolve_impl(impl, cpad.device)
     if impl == "fused":
         from .cuda.distance_kernel import min_haversine_param_cuda
         amin = min_haversine_param_cuda(
             cpad, sdphi2, po, sdlam2, k,
-            monotone=getattr(tables, "monotone", None))
+            monotone=getattr(tables, "monotone", None), row_monotone=rows)
     elif impl == "hybrid":
         from .cuda.distance_kernel import pass2_min_cuda
-        amin = pass2_min_cuda(pass1_extrema(cpad, sdlam2, k), sdphi2, po, k)
+        amin = pass2_min_cuda(pass1_extrema(cpad, sdlam2, k), sdphi2, po, k,
+                              row_monotone=rows)
     else:
         amin = min_haversine_param_from_padded(cpad, sdphi2, po, sdlam2, k)
     return finalize_distance(amin, lsm, maxdist)

@@ -105,17 +105,34 @@ PASS2_SHAPES = [(3, 20), (16, 128), (37, 70), (45, 301), (64, 256),
                 (721, 1440)]
 
 
+def _v_rows(rng, h, k):
+    """(h, 2k+1) rows that fall from either end to 0 at the centre tap, the
+    first rows' leading taps BIG (the lat edge): every row has the
+    property of ``window_monotone``."""
+    left = -np.sort(-rng.random((h, k)), axis=1)
+    right = np.sort(rng.random((h, k)), axis=1)
+    t = np.concatenate([left, np.zeros((h, 1)), right], axis=1)
+    for y in range(min(h, k)):
+        t[y, : k - y] = 1.0e30
+    return t.astype(np.float32)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", PASS2_SHAPES)
 @pytest.mark.parametrize("k", [0, 1, 6, 15, 176, 310, 387, 1000])
 @pytest.mark.parametrize("offset", [0, 1])
-def test_pass2_kernel_shapes_bit_equal_to_plain(shape, k, offset, dev):
+@pytest.mark.parametrize("rows", ["random", "monotone"])
+def test_pass2_kernel_shapes_bit_equal_to_plain(shape, k, offset, rows, dev):
     """B2 against its plain version, bit for bit, on random Mmin with BIG
     rows, BIG blocks and BIG cells, at k = 0 (one tap) to 15 and past the
     staged build's widest radius (175, ``pass2_min_limits``; the unstaged
     build: a 0.5 km grid's 310, a 0.4 km grid's 387, 1000), where the
     launcher once raised; ``offset`` 1 places Mmin and so its rows off the
-    16-byte alignment (the scalar path)."""
+    16-byte alignment (the scalar path).  ``rows``: random sdphi2 rows (no
+    row has the monotone property) or rows that fall to the centre tap
+    (every row has it, the first rows BIG at the lat edge), each with the
+    rows' flags and without (the unstaged build's early exit and every
+    tap)."""
     assert pass2_min_limits() == 175
     h, w = shape
     rng = np.random.default_rng(h * 1000 + w + k)
@@ -126,15 +143,20 @@ def test_pass2_kernel_shapes_bit_equal_to_plain(shape, k, offset, dev):
     buf = torch.empty(m.size + offset, device=dev)
     Mmin = buf[offset:].view(m.shape)
     Mmin.copy_(torch.as_tensor(m))
-    sdphi2 = torch.as_tensor(rng.random((h, 2 * k + 1)).astype(np.float32),
-                             device=dev)
+    t = (rng.random((h, 2 * k + 1)).astype(np.float32) if rows == "random"
+         else _v_rows(rng, h, k))
+    flags = window_monotone(t, k)
+    assert flags.all() if rows == "monotone" else k < 2 or not flags.any()
+    sdphi2 = torch.as_tensor(t, device=dev)
     po = torch.as_tensor(rng.random((h, 2 * k + 1)).astype(np.float32),
                          device=dev)
-    before = pass2_min_cuda.launches
-    got = pass2_min_cuda(Mmin, sdphi2, po, k)
-    assert pass2_min_cuda.launches == before + 1
-    torch.testing.assert_close(got, pass2_min(Mmin, sdphi2, po, k), rtol=0,
-                               atol=0)
+    ref = pass2_min(Mmin, sdphi2, po, k)
+    for row_mono in (torch.as_tensor(flags.astype(np.uint8), device=dev),
+                     None):
+        before = pass2_min_cuda.launches
+        got = pass2_min_cuda(Mmin, sdphi2, po, k, row_monotone=row_mono)
+        assert pass2_min_cuda.launches == before + 1
+        torch.testing.assert_close(got, ref, rtol=0, atol=0)
 
 
 @pytest.mark.cuda
@@ -600,7 +622,8 @@ def test_min_haversine_every_radius(case, k, dev):
     ragged and misaligned fields, the periodic seam, no coast, all coast
     and coast at the band corners.  Three tables each: a grid's with its
     monotone flags (pass 1 by the nearest coast bit each side, bar a
-    regional grid's columns within k of its seam), the same without flags,
+    regional grid's columns within k of its seam) and its rows' flags (the
+    large build's early exit in pass 2), the same without either or both,
     and a random table that has the property nowhere (its flags all
     zero)."""
     k = min_haversine_limits() if k == "max" else k
@@ -612,9 +635,11 @@ def test_min_haversine_every_radius(case, k, dev):
     tabs = device_tables(Grid(lon=lon, lat=lat), k, dev)
     noisy = [torch.as_tensor(rng.random((n, 2 * k + 1), np.float32),
                              device=dev) for n in (nlat, nlat, nlon)]
-    rough = DistanceTables(*noisy, torch.as_tensor(window_monotone(
-        noisy[2].cpu().numpy(), k).astype(np.uint8), device=dev))
-    assert k < 2 or not rough.monotone.any()
+    rough = DistanceTables(*noisy, *(torch.as_tensor(window_monotone(
+        noisy[i].cpu().numpy(), k).astype(np.uint8), device=dev)
+        for i in (2, 0)))
+    assert k < 2 or not (rough.monotone.any() or rough.row_monotone.any())
+    assert bool(tabs.row_monotone.all())
     coast = torch.as_tensor(_b3_coast(nlat, nlon, kind, rng), device=dev)
     cpad = pad_coast(coast, k)
     if case == "misaligned":
@@ -622,14 +647,85 @@ def test_min_haversine_every_radius(case, k, dev):
         flat[1:] = cpad.reshape(-1)
         cpad = flat[1:].view(cpad.shape)
         assert cpad.data_ptr() % 16 == 4 and cpad.shape[1] % 4 != 0
-    for t, mono in ((tabs, tabs.monotone), (tabs, None),
-                    (rough, rough.monotone)):
+    for t, mono, rows in ((tabs, tabs.monotone, tabs.row_monotone),
+                          (tabs, tabs.monotone, None),
+                          (tabs, None, tabs.row_monotone), (tabs, None, None),
+                          (rough, rough.monotone, rough.row_monotone)):
         before = min_haversine_param_cuda.launches
-        got = min_haversine_param_cuda(cpad, *t, k, monotone=mono)
+        got = min_haversine_param_cuda(cpad, *t, k, monotone=mono,
+                                       row_monotone=rows)
         assert min_haversine_param_cuda.launches == before + 1
         torch.testing.assert_close(
             got, min_haversine_param_from_padded(cpad, *t, k), rtol=0,
             atol=0)
+
+
+#: Fields where the wide-radius pass 2's early exit matters, at radius k:
+#: name -> (nlat, nlon, global lon axis, coast cells or a density).
+#: ``far_edge``: one coast cell k rows below row 0 (row 0's last lat tap
+#: centre-out); ``far_corner``: one cell k rows and k columns from cell
+#: (0, 0), the corner of its window; ``lane_out``: one cell, in a field
+#: wider than 2k+1 columns that is no multiple of 32, so the columns
+#: farther than k from it (both ways round the periodic pad) sit in warps
+#: whose other lanes have coast; ``lat_edges``: every row within k of both
+#: lat edges; ``seam``: a regional grid (its columns within k of the seam
+#: not monotone) with coast in both edge columns; ``none``: no coast;
+#: ``ragged``: 45 columns; ``segments``: 4100 columns, more than one pass-1
+#: block of B3's large build takes (4096), so a row is split.
+def _wide_field(kind, k, rng):
+    if kind == "far_edge":
+        h, w, glob, cells = k + 4, 40, True, [(k, 7)]
+    elif kind == "far_corner":
+        h, w, glob, cells = k + 1, 2 * k + 2, True, [(k, k)]
+    elif kind == "lane_out":
+        h, w, glob, cells = 8, 2 * k + 40, True, [(3, 0)]
+    elif kind == "seam":
+        h, w, glob, cells = 30, 96, False, [(5, 0), (20, 95)]
+    elif kind == "none":
+        h, w, glob, cells = 17, 40, True, []
+    else:
+        h, w, glob = {"lat_edges": (40, 70, True), "ragged": (24, 45, False),
+                      "segments": (6, 4100, False)}[kind]
+        cells = list(zip(*np.nonzero(rng.random((h, w)) < 0.04)))
+    c = np.zeros((h, w), np.float32)
+    for y, x in cells:
+        c[y, x] = 1.0
+    lat = np.linspace(60.0, 20.0, h).astype(np.float32)
+    lon = (np.arange(w) * (360.0 / w if glob else 0.02)).astype(np.float32)
+    return Grid(lon=lon, lat=lat), c
+
+
+WIDE_FIELDS = ("far_edge", "far_corner", "lane_out", "lat_edges", "seam",
+               "none", "ragged", "segments")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", WIDE_FIELDS)
+@pytest.mark.parametrize("k", [176, 310, 355, 387, 620, 1000])
+def test_wide_radius_fields_bit_equal_to_plain(kind, k, dev):
+    """B3 (its large build past 354) and B2 (its unstaged build past 175)
+    bit-equal to their plain versions on the fields where the early exit of
+    their pass 2 matters (``_wide_field``), with the rows' flags and
+    without; and on the grid's tables every row has the flag."""
+    grid, c = _wide_field(kind, k, np.random.default_rng(k))
+    tabs = device_tables(grid, k, dev)
+    assert bool(tabs.row_monotone.all())
+    cpad = pad_coast(torch.as_tensor(c, device=dev), k)
+    ref = min_haversine_param_from_padded(cpad, *tabs, k)
+    if kind == "lane_out":
+        reach = (ref < 0.5e30).any(dim=0).cpu().numpy()
+        assert reach.any() and not reach.all()
+    mmin = pass1_extrema(cpad, tabs[2], k)
+    for rows in (tabs.row_monotone, None):
+        before = (min_haversine_param_cuda.launches, pass2_min_cuda.launches)
+        got3 = min_haversine_param_cuda(cpad, *tabs, k,
+                                        monotone=tabs.monotone,
+                                        row_monotone=rows)
+        got2 = pass2_min_cuda(mmin, tabs[0], tabs[1], k, row_monotone=rows)
+        assert (min_haversine_param_cuda.launches,
+                pass2_min_cuda.launches) == (before[0] + 1, before[1] + 1)
+        torch.testing.assert_close(got3, ref, rtol=0, atol=0)
+        torch.testing.assert_close(got2, ref, rtol=0, atol=0)
 
 
 @pytest.mark.cuda

@@ -4,6 +4,7 @@ one NVIDIA GPU.
 
     python3 tools/compare_designs.py [--against NAME=DIR ...] [--reps N]
                                      [--only B1,B2,B3,B4,B5,B6]
+                                     [--builds NAME,...]
 
 Builds, with one ``nvcc`` per library, all started together:
 
@@ -55,6 +56,24 @@ Builds, with one ``nvcc`` per library, all started together:
   too), with the resident block slots filled twice over where k <= 32 or
   at every k, and counting each warp's cycles by part of a stage (printed
   as shares after the size's timings);
+* B2 and B3 at wide radii: ``l1``, ``tools/designs/
+  pass2_min_unstaged_l1.cu``, and ``ring``, ``tools/designs/
+  min_haversine_ring.cu``, the builds before the wide-radius redesign
+  (B2's unstaged build reading
+  every tap through L1; B3's large build sweeping chunks with a ring of
+  pass-1 rows in device scratch); B2 with the options of the port's
+  pass-2 routine, ``tools/designs/pass2_pruned_variants.cu``
+  (:data:`PRUNED_OPTIONS`): ``pruned_all`` (the port's constants),
+  ``noshfl`` (each tap loads its table entries instead of taking them by
+  shuffle from a lane that loaded 32 steps' entries at once), ``cols1``
+  and ``cols4`` (one or four columns a lane), ``warps2`` and ``warps8``
+  (blocks of 2 or 8 warps), ``group4`` and ``group16`` (a vote every 4 or
+  16 steps of j), ``every_tap`` (no early exit) and ``clocks`` (each
+  warp's time and taps counted, printed after the size's timings); B3
+  ``pruned_all``: a copy of the port's ``min_haversine.cu`` with its
+  large build at every k (its ``LARGE_FROM`` set to 0, written under
+  ``build/designs``); both ``pruned_all`` timed beside the
+  staged builds at the 1 km and 0.5 km worlds;
 * B6 ``occupancy4`` and ``unroll2``: ``tools/designs/
   halo_exchange_rows_variants.cu``, the port's design held to 64 registers
   (four blocks per SM against two), and with two 16-byte units per lane in
@@ -86,7 +105,12 @@ under ``read`` and ``warm``).  B3 on the coast of ``bench.make_world`` at
 0.25 and 0.1 degrees beside the hybrid distance (torch pass 1 + B2, the
 yardstick ``hybrid``), and on ``chip_smoke.fine_world`` (k = 93) and
 ``chip_smoke.km_world`` (k = 155), where neither the parent's build nor
-``first`` runs.  Imports nothing of JAX.
+``first`` runs.  B2 and B3 also on 1024 x 1024 worlds from
+54 N at 0.0045 degrees (``half``, k = 310), 0.0036 (``wide387``, the 0.4
+km world) and 0.00225 (``wide620``), and B2 at ``km``; there the pass-2
+routine takes the rows' flags of ``device_tables``.  ``--builds`` keeps
+only the named builds (the parent's and this tree's are always kept).
+Imports nothing of JAX.
 """
 from __future__ import annotations
 
@@ -94,6 +118,7 @@ import argparse
 import ctypes
 import json
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -113,6 +138,25 @@ OUT = ROOT / "build" / "designs"
 MODES = {"write": True, "read": "read", "warm": False}
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-Xcompiler", "-fPIC", "-shared", "-Xptxas", "-v")
+
+
+#: Builds of the wide-radius pass 2's options (tools/designs/
+#: pass2_pruned_variants.cu, kernel B2 with the routine at every k):
+#: ``pruned_all`` the port's constants; the others each change one: no
+#: shuffles (each tap loads its table entries), one or four columns a
+#: lane instead of two, blocks of 2 or 8 warps instead of 4, a vote every
+#: 4 or 16 steps of j instead of 8, no early exit, and counters of the
+#: warps' time and taps.
+PRUNED_OPTIONS = {"pruned_all": (),
+                  "noshfl": ("-DSBZ_PRUNED_SHFL=0",),
+                  "cols1": ("-DSBZ_PRUNED_CPL=1",),
+                  "cols4": ("-DSBZ_PRUNED_CPL=4",),
+                  "warps2": ("-DSBZ_PRUNED_WARPS=2",),
+                  "warps8": ("-DSBZ_PRUNED_WARPS=8",),
+                  "group4": ("-DSBZ_PRUNED_GROUP=4",),
+                  "group16": ("-DSBZ_PRUNED_GROUP=16",),
+                  "every_tap": ("-DSBZ_PRUNED_EXIT=0",),
+                  "clocks": ("-DSBZ_PRUNED_CLOCKS=1",)}
 
 
 def builds(against):
@@ -169,6 +213,11 @@ def builds(against):
     b3["waves2_small"] = (mh, ("-DSBZ_MH3_WAVES2_UP_TO=32",))
     b3["waves2"] = (mh, ("-DSBZ_MH3_WAVES2_UP_TO=100000",))
     b3["clocks"] = (mh, ("-DSBZ_MH3_CLOCKS=1",))
+    b2["l1"] = (DESIGNS / "pass2_min_unstaged_l1.cu", ())
+    b3["ring"] = (DESIGNS / "min_haversine_ring.cu", ())
+    for name, flags in PRUNED_OPTIONS.items():
+        b2[name] = (DESIGNS / "pass2_pruned_variants.cu", flags)
+    b3["pruned_all"] = (large_everywhere(), ("-I", str(CSRC)))
     rows = DESIGNS / "halo_exchange_rows_variants.cu"
     b6["occupancy4"] = (rows, ("-DSBZ_HALO_MIN_BLOCKS=4",))
     b6["unroll2"] = (rows, ("-DSBZ_HALO_UNROLL=2",))
@@ -176,6 +225,26 @@ def builds(against):
     b6["gather"] = (gather, ())
     b6["gather_rows8"] = (gather, ("-DSBZ_HALO_ROWS=8",))
     return {"B2": b2, "B1": b1, "B3": b3, "B6": b6}
+
+
+def large_everywhere():
+    """A copy of this tree's ``csrc/min_haversine.cu`` whose large build
+    takes every k (``LARGE_FROM`` 0), written under :data:`OUT`."""
+    line = "constexpr int LARGE_FROM = MAX_K + 1;"
+    src = (CSRC / "min_haversine.cu").read_text()
+    if line not in src:
+        raise RuntimeError(f"min_haversine.cu no longer holds {line!r}")
+    OUT.mkdir(parents=True, exist_ok=True)
+    path = OUT / "min_haversine_large_everywhere.cu"
+    path.write_text(src.replace(line, "constexpr int LARGE_FROM = 0;"))
+    return path
+
+
+#: B3's large launcher in a source where it takes the rows' flags (this
+#: tree's) instead of the columns' (PR 9's, ``tools/designs/
+#: min_haversine_ring.cu``).
+LARGE_TAKES_ROWS = re.compile(
+    r'extern "C" int sbz_min_haversine_large\([^)]*\brow_mono\b')
 
 
 def build_all(table):
@@ -199,8 +268,16 @@ def build_all(table):
             if "registers" in line or "spill" in line or "Compiling" in line:
                 print(f"# {key[0]} {key[1]} ptxas {line.strip()[-110:]}")
         lib = ctypes.CDLL(str(path))
+        lib.large_takes_rows = bool(LARGE_TAKES_ROWS.search(
+            Path(table[key[0]][key[1]][0]).read_text()))
         for fn, args in _build.SIGNATURES.items():
             if hasattr(lib, fn):
+                # B2's launcher from before its row flags (B3's large one
+                # took the columns' flags where it now takes the rows')
+                if fn == "sbz_pass2_min" and not hasattr(
+                        lib, "sbz_pass2_min_layout"):
+                    args = args[:3] + args[4:]
+
                 # ring launchers from before their scratch argument, B3's
                 # from before its monotone flags
                 if fn in RING_LAUNCHERS and not hasattr(lib,
@@ -243,37 +320,65 @@ def stream():
     return torch.cuda.current_stream().cuda_stream
 
 
+#: The regional worlds of the distance kernels: name -> (spacing in degrees,
+#: top latitude, steps); k at 180 km: 93, 155, 310, 387, 620.
+REGIONAL = {"fine": (cs.FINE_SPACING, 55.0, cs.FINE_STEPS),
+            "km": (cs.KM_SPACING, 54.0, cs.KM_STEPS),
+            "half": (0.0045, 54.0, 1),
+            "wide387": (0.0036, 54.0, cs.WIDE_STEPS),
+            "wide620": (0.00225, 54.0, cs.WIDE_STEPS)}
+
+
+def distance_world(name):
+    """(grid, lsm, first step's sea ice) of ``bench.GRIDS[name]`` or of a
+    :data:`REGIONAL` world (the smoke's own where it has one)."""
+    from bench import GRIDS, make_world
+    if name == "fine":
+        grid, world = cs.fine_world()
+    elif name == "km":
+        grid, world = cs.km_world()
+    elif name in ("wide387", "wide620"):
+        grid, world = cs.wide_world(REGIONAL[name][0])
+    elif name in REGIONAL:
+        grid, world = cs.regional_world(*REGIONAL[name])
+    else:
+        grid, _, _ = cs.world_grid(name)
+        world = make_world(*GRIDS[name], 1, 1, seed=3)
+    return grid, world[0], world[7][0]
+
+
 def b2_inputs(name):
     import torch
-    from bench import GRIDS, make_world
     from seabreeze_param_tpu_torch.ops.coastline import get_edges
     from seabreeze_param_tpu_torch.ops.distance import (
         device_tables, effective_radius, pad_coast, pass1_extrema)
-    grid, _, _ = cs.world_grid(name)
-    nlat, nlon = GRIDS[name]
-    lsm, _, _, _, _, _, _, ci = make_world(nlat, nlon, 1, 1, seed=3)
+    grid, lsm, ci = distance_world(name)
     dev = torch.device("cuda")
     k = effective_radius(grid, 180.0)
-    sdphi2, po, sdlam2 = device_tables(grid, k, dev)
+    tabs = device_tables(grid, k, dev)
     coast = get_edges(torch.as_tensor(lsm, device=dev),
-                      torch.as_tensor(ci[0], device=dev))
-    return pass1_extrema(pad_coast(coast, k), sdlam2, k), sdphi2, po, k
+                      torch.as_tensor(ci, device=dev))
+    return (pass1_extrema(pad_coast(coast, k), tabs[2], k), tabs[0], tabs[1],
+            tabs.row_monotone, k)
 
 
 def b2_case(name):
     """(check, make_call) for B2 at ``name``."""
     import torch
     from seabreeze_param_tpu_torch.ops.distance import pass2_min
-    Mmin, sdphi2, po, k = b2_inputs(name)
+    Mmin, sdphi2, po, rows, k = b2_inputs(name)
     h, w = Mmin.shape[0] - 2 * k, Mmin.shape[1]
     ref = pass2_min(Mmin, sdphi2, po, k)
     out = torch.empty((h, w), device=Mmin.device)
 
     def make_call(lib):
+        flags = ((rows.data_ptr(),) if hasattr(lib, "sbz_pass2_min_layout")
+                 else ())
+
         def call():
             err = lib.sbz_pass2_min(Mmin.data_ptr(), sdphi2.data_ptr(),
-                                    po.data_ptr(), out.data_ptr(), h, w, k,
-                                    stream())
+                                    po.data_ptr(), *flags, out.data_ptr(), h,
+                                    w, k, stream())
             assert err == 0, f"sbz_pass2_min: cudaError_t {err}"
         return call
 
@@ -286,42 +391,49 @@ def b2_case(name):
 
 def b3_case(name):
     """(check, make_call, yardsticks) for B3 at ``name``: one of
-    ``bench.GRIDS``, ``fine`` or ``km``; the yardstick ``hybrid`` (torch
+    ``bench.GRIDS`` or :data:`REGIONAL`; the yardstick ``hybrid`` (torch
     pass 1 + this build's B2) at the global grids only (at the regional
-    ones its ~190-310 pass-1 launches per call outrun the card's queue,
+    ones its ~190-1240 pass-1 launches per call outrun the card's queue,
     which ``device_ms`` needs ahead of the device)."""
     import torch
-    from bench import GRIDS, make_world
     from seabreeze_param_tpu_torch.ops.coastline import get_edges
     from seabreeze_param_tpu_torch.ops.cuda.distance_kernel import (
         pass2_min_cuda)
     from seabreeze_param_tpu_torch.ops.distance import (
         device_tables, effective_radius, min_haversine_param_from_padded,
-        pad_coast, pass1_extrema, window_monotone)
-    if name in ("fine", "km"):
-        grid, world = cs.fine_world() if name == "fine" else cs.km_world()
-        lsm, ci = world[0], world[7]
-    else:
-        grid, _, _ = cs.world_grid(name)
-        lsm, *_, ci = make_world(*GRIDS[name], 1, 1, seed=3)
+        pad_coast, pass1_extrema)
+    grid, lsm, ci = distance_world(name)
     dev = torch.device("cuda")
     k = effective_radius(grid, 180.0)
     tabs = device_tables(grid, k, dev)
     cpad = pad_coast(get_edges(torch.as_tensor(lsm, device=dev),
-                               torch.as_tensor(ci[0], device=dev)), k)
+                               torch.as_tensor(ci, device=dev)), k)
     h, w = grid.shape
     ref = min_haversine_param_from_padded(cpad, *tabs, k)
     out = torch.empty((h, w), device=dev)
 
-    # the first sweep's interface also takes per-row flags of sdphi2
-    rows = torch.as_tensor(window_monotone(tabs[0].cpu().numpy(), k).astype(
-        np.uint8), device=dev)
-
     def make_call(lib):
         flags = ((tabs.monotone.data_ptr(),)
                  if hasattr(lib, "sbz_min_haversine_limits") else ())
+        # the first sweep's interface also takes the rows' flags
         if hasattr(lib, "sbz_min_haversine_row_flags"):
-            flags = (rows.data_ptr(),) + flags
+            flags = (tabs.row_monotone.data_ptr(),) + flags
+        floats = ctypes.c_longlong(0)
+        if hasattr(lib, "sbz_min_haversine_scratch"):
+            lib.sbz_min_haversine_scratch(h, w, k, ctypes.byref(floats))
+        if floats.value:
+            # the large build (this tree's with the rows' flags instead of
+            # the columns'), its scratch kept with the call
+            if lib.large_takes_rows:
+                flags = (tabs.row_monotone.data_ptr(),)
+            scratch = torch.empty(floats.value, device=dev)
+
+            def call():
+                err = lib.sbz_min_haversine_large(
+                    cpad.data_ptr(), *(t.data_ptr() for t in tabs), *flags,
+                    out.data_ptr(), h, w, k, scratch.data_ptr(), stream())
+                assert err == 0, f"sbz_min_haversine_large: cudaError_t {err}"
+            return call
 
         def call():
             err = lib.sbz_min_haversine(
@@ -335,7 +447,7 @@ def b3_case(name):
         make_call(lib)()
         return bool(torch.equal(out, ref))
 
-    yard = None if name in ("fine", "km") else {
+    yard = None if name in REGIONAL else {
         "hybrid": lambda: pass2_min_cuda(pass1_extrema(cpad, tabs[2], k),
                                          tabs[0], tabs[1], k)}
     return check, make_call, yard
@@ -628,6 +740,25 @@ def b3_clocks(lib, call):
     return res
 
 
+def pass2_clocks(lib, call):
+    """One call of B2's unstaged build counting its warps
+    (``SBZ_PRUNED_CLOCKS``): the call's span from the first warp's start to
+    the last warp's end, the warps' mean time and taps, the time a tap
+    takes a warp, and how many warps ran at once on average (their summed
+    time over the span)."""
+    import torch
+    buf = (ctypes.c_ulonglong * 5)()
+    lib.sbz_pass2_min_clocks(buf)                # zero the counters
+    call()
+    torch.cuda.synchronize()
+    lib.sbz_pass2_min_clocks(buf)
+    ns, taps, warps = buf[0], buf[1], max(buf[2], 1)
+    span = max(buf[4] - buf[3], 1)
+    return dict(span_us=span / 1e3, warp_us=ns / warps / 1e3,
+                taps_per_warp=taps / warps, ns_per_tap=ns / max(taps, 1),
+                warps_at_once=ns / span, warps=float(warps))
+
+
 def time_round(names, libs_of, check, make_call, reps, yard=None):
     """Every build of ``names`` (and each yardstick) held bit-equal, then
     timed in list order and reversed, in each L2 mode; returns
@@ -657,6 +788,8 @@ def main():
     ap.add_argument("--reps", type=int, default=30)
     ap.add_argument("--only", default="B1,B2,B3,B4,B5,B6",
                     help="comma-separated kernels to time")
+    ap.add_argument("--builds", default=None,
+                    help="comma-separated builds to keep (default: all)")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -673,6 +806,10 @@ def main():
             "B6": "B6"}
     table = {k: v for k, v in table.items()
              if any(need[o] == k for o in only)}
+    if args.builds:
+        keep = {"this", *against, *args.builds.split(",")}
+        table = {k: {n: b for n, b in v.items() if n in keep}
+                 for k, v in table.items()}
     libs = build_all(table)
     # the timing's floor: one launch of a one-element kernel
     one = torch.zeros(1, device="cuda")
@@ -705,12 +842,27 @@ def main():
               mine + large)]
     plan += [("B1", "B1", "km@243", lambda: b1_case("km", 243),
               ["this"] + large)]
-    plan += [("B3", "B3", size, lambda z=size: b3_case(z), None)
-             for size in ("global025", "global010")]
-    # the parent's build and the first design refuse k >= 89
+    # the wide-radius designs run only where their routine is taken
+    wide = ("l1", "ring", *PRUNED_OPTIONS)
+    plan = [(kern, group, size, case, names if names is not None else
+             [n for n in table.get(group, ()) if n not in wide])
+            for kern, group, size, case, names in plan]
     plan += [("B3", "B3", size, lambda z=size: b3_case(z),
-              [n for n in table.get("B3", ()) if n not in ("first", *against)])
-             for size in ("fine", "km")]
+              [n for n in table.get("B3", ()) if n not in wide])
+             for size in ("global025", "global010")]
+    # the first design refuses k >= 89
+    plan += [("B3", "B3", "fine", lambda: b3_case("fine"),
+              [n for n in table.get("B3", ()) if n not in ("first", *wide)])]
+    # the staged builds beside the pruned routine at every k
+    plan += [("B3", "B3", size, lambda z=size: b3_case(z),
+              ["this", *against, "pruned_all"]) for size in ("km", "half")]
+    plan += [("B2", "B2", "km", lambda: b2_case("km"),
+              ["this", *against, "pruned_all"])]
+    plan += [("B2", "B2", size, lambda z=size: b2_case(z),
+              ["this", *against, "l1", *PRUNED_OPTIONS])
+             for size in ("half", "wide387", "wide620")]
+    plan += [("B3", "B3", size, lambda z=size: b3_case(z),
+              ["this", *against, "ring"]) for size in ("wide387", "wide620")]
     for kern, group, size, case, names in plan:
         if kern not in only:
             continue
@@ -731,6 +883,11 @@ def main():
                   f"warm {mean[name, 'warm']:.2f}", flush=True)
         for name in names:
             lib = libs[group, name]
+            if hasattr(lib, "sbz_pass2_min_clocks"):
+                clk = pass2_clocks(lib, make_call(lib))
+                print(f"# {kern} {size} {name:14s} warps: " + ", ".join(
+                    f"{k} {v:.4g}" for k, v in clk.items()), flush=True)
+                result.setdefault("B2_clocks", {})[size] = clk
             if hasattr(lib, "sbz_min_haversine_clocks"):
                 clk = b3_clocks(lib, make_call(lib))
                 print(f"# {kern} {size} {name:14s} cycles by part: " + ", ".join(

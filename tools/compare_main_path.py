@@ -3,7 +3,7 @@
 another's, in pairs of fresh processes on one NVIDIA GPU.
 
     python3 tools/compare_main_path.py --against DIR [--pairs N]
-                                       [--phase main|sharded|fine|km]
+                                       [--phase main|sharded|fine|km|wide]
 
 Each run is one process that imports the package of one checkout (this
 one, or ``DIR``, e.g. a ``git archive`` of the parent commit) and drives
@@ -15,7 +15,9 @@ on a 2 x 4 mesh of the card, 16 steps of the same world: overlapped,
 basic, plain, and the single-device run), or the ``diag`` of a regional
 phase, ``regional_diag`` over ``fine_world`` (1024 x 1024 at 0.015 deg,
 8 steps) or ``km_world`` (1024 x 1024 at 0.009 deg, 4 steps), kernel path
-and plain path after a warm-up call.  The harness is the same on
+and plain path after a warm-up call, or (``wide``) ``resident_run`` of the
+fused distance over the 0.4 km world (1024 x 1024 at 0.0036 deg, k = 387,
+2 steps, inputs on the card), the median of 5 runs after a warm-up.  The harness is the same on
 both sides; only the package differs.  Runs alternate in pairs (this first
 in even pairs, ``DIR`` first in odd ones).  Prints one line per run and a
 JSON line ``{"main_path": ...}`` with each side's runs, medians and
@@ -47,6 +49,7 @@ KEYS = {
              "plain_ms_per_step": ("plain_ms_per_step",)},
     "km": {"ms_per_step": ("ms_per_step",),
            "plain_ms_per_step": ("plain_ms_per_step",)},
+    "wide": {"resident_fused": ("ms_per_step",)},
 }
 #: Per phase, the statement that fills ``out``.
 DRIVE = {
@@ -54,6 +57,9 @@ DRIVE = {
     "sharded": "cs.phase_sharded(out)",
     "fine": "out.update(cs.regional_diag(cs.fine_world(), 'fine', 1))",
     "km": "out.update(cs.regional_diag(cs.km_world(), '1 km', 1))",
+    "wide": "r = cs.resident_run(cs.wide_world(cs.WIDE_WORLDS[0][1]), "
+            "'fused', reps=5); out.update(launches=r['launches'], "
+            "ms_per_step=r['ms_per_step'])",
 }
 
 RUN = """

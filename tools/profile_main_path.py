@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Where the time of the port's main path goes, on one NVIDIA GPU.
 
-    python3 tools/profile_main_path.py [--sharded | --driver]
+    python3 tools/profile_main_path.py [--sharded | --driver | --wide]
+                                       [--trace DIR]
 
 Uses the world of ``chip_smoke.py``'s main phase (global 0.25 deg, 4
 levels, 32 steps, moving polar sea ice) and prints two reports (with
@@ -11,11 +12,14 @@ overlapped and basic structures on the kernel path):
 
 1. **Resident loop under the profiler.**  ``TriggerPipeline.run`` with every
    input already on the card, kernel path and plain path, one warm-up run
-   each, then one run under ``torch.profiler``: the wall time, the device's
-   busy time (the union of the intervals of its kernels and copies) and so
-   its idle share, the device kernels per step, the device time of the
+   each, the median wall time of 10 runs without the profiler, then one
+   run under ``torch.profiler``: the wall time, the device's busy time (the
+   union of the intervals of its kernels and copies) and so its idle
+   share, when the host returned from its last kernel launch and when the
+   device ended, the device kernels per step, the device time of the
    heaviest kernels by name and of each of the port's own kernels, and
-   the host ops by self time.
+   the host ops by self time.  With ``--trace DIR`` each profiled run is
+   also written to ``DIR`` as a Chrome trace (``LABEL.json``).
    Falls back to CUDA events for the wall time alone when the profiler sees
    no device activity.
 2. **Breakdown of one ``diag`` call.**  Each part timed alone, best of 3,
@@ -26,6 +30,12 @@ overlapped and basic structures on the kernel path):
    sb_con and of all four output fields.  With ``--driver``, this report
    alone, for the call the batch driver makes per file: the world's first
    4 steps (``chip_smoke``'s driver phase).
+
+With ``--wide``, the first report alone, on ``chip_smoke``'s 0.4 km world
+(1024 x 1024 at 0.0036 deg from 54 N, 2 steps, k = 387, NN = 391) for
+``TriggerPipeline.run`` on the kernel path with the fused distance (B3's
+large build) and with the hybrid one (torch pass 1 and B2's unstaged
+build).
 
 Imports nothing of JAX.  Without a CUDA device it exits non-zero.
 """
@@ -70,7 +80,8 @@ def busy_ms(intervals):
     return total
 
 
-def profile_resident(world, top=15, sharded=False):
+def profile_resident(world, top=15, sharded=False, wide=False,
+                     trace_dir=None):
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -94,6 +105,10 @@ def profile_resident(world, top=15, sharded=False):
         runners = {f"sharded {SHARD_MESH} {label}": ShardedPipeline(
             pipe, mesh, overlap=label == "overlapped")
             for label in ("overlapped", "basic")}
+    elif wide:
+        runners = {f"0.4 km {impl}": TriggerPipeline(
+            grid, device=dev, distance_impl=impl)
+            for impl in ("fused", "hybrid")}
     else:
         runners = {label: TriggerPipeline(grid, device=dev, use_kernels=uk)
                    for label, uk in (("kernel", None), ("plain", False))}
@@ -105,6 +120,7 @@ def profile_resident(world, top=15, sharded=False):
                      z, std, pres, ci_t=ci)
 
         run()                                             # warm-up
+        walls = sorted(wall_ms(run, reps=1) for _ in range(10))
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -120,10 +136,24 @@ def profile_resident(world, top=15, sharded=False):
             continue
         busy = busy_ms([(e.time_range.start, e.time_range.end)
                         for e in dev_events]) / 1e3
+        t0_us = min(e.time_range.start for e in prof.events())
+        launched = max((e.time_range.end for e in prof.events()
+                        if e.name.startswith(("cudaLaunchKernel",
+                                              "cuLaunchKernel"))),
+                       default=t0_us)
+        ended = max(e.time_range.end for e in dev_events)
         log(f"## {label}: wall {wall:.3f} ms for {T} steps "
-            f"({wall / T:.4f} ms/step, profiler on); device busy "
-            f"{busy:.3f} ms, idle share {1 - busy / wall:.3f}; "
+            f"({wall / T:.4f} ms/step, profiler on; without it "
+            f"{walls[4] / T:.4f} ms/step, median of 10, range "
+            f"{walls[0] / T:.4f}-{walls[-1] / T:.4f}); device busy "
+            f"{busy:.3f} ms, idle share {1 - busy / wall:.3f}; the host's "
+            f"last launch returned at {(launched - t0_us) / 1e3:.3f} ms, "
+            f"the device ended at {(ended - t0_us) / 1e3:.3f} ms; "
             f"{len(dev_events) / T:.1f} device kernels and copies per step")
+        if trace_dir is not None:
+            Path(trace_dir).mkdir(parents=True, exist_ok=True)
+            prof.export_chrome_trace(
+                str(Path(trace_dir) / (label.replace(" ", "_") + ".json")))
         by_name = {}
         for e in dev_events:
             n, ms = by_name.get(e.name, (0, 0.0))
@@ -207,17 +237,24 @@ def main():
                         "--format=csv,noheader"], capture_output=True,
                        text=True, check=True).stdout.strip().splitlines()[0])
     log(f"# torch {torch.__version__}, CUDA {torch.version.cuda}")
-    world = main_world()
-    if "--sharded" in sys.argv[1:]:
-        profile_resident(world, sharded=True)
+    args = sys.argv[1:]
+    trace_dir = args[args.index("--trace") + 1] if "--trace" in args else None
+    if "--wide" in args:
+        from chip_smoke import WIDE_WORLDS, wide_world
+        profile_resident(wide_world(WIDE_WORLDS[0][1]), wide=True,
+                         trace_dir=trace_dir)
         return 0
-    if "--driver" in sys.argv[1:]:
+    world = main_world()
+    if "--sharded" in args:
+        profile_resident(world, sharded=True, trace_dir=trace_dir)
+        return 0
+    if "--driver" in args:
         from chip_smoke import DRIVER_STEPS
         grid, (lsm, z, std, pres, *series) = world
         breakdown((grid, (lsm, z, std, pres,
                           *(a[:DRIVER_STEPS] for a in series))))
         return 0
-    profile_resident(world)
+    profile_resident(world, trace_dir=trace_dir)
     breakdown(world)
     return 0
 
