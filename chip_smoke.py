@@ -83,6 +83,18 @@ WIDE_WORLDS, WIDE_STEPS = ((387, 0.0036), (620, 0.00225)), 2
 #: The multi-process phase: ranks over gloo sharing the one card, and the
 #: seconds each launch of them may take.
 MP_RANKS, MP_TIMEOUT = 2, 480
+#: B2's two-extremum form alone: the radii it is held bit-equal at (the
+#: main world's 6 and 0.1 deg's 15, its staged build's widest, 93, and one
+#: past, and 387 on the unstaged routine), those timed, and the seed of its
+#: negative po.
+TWO_RADII, TWO_TIMED, TWO_SEED = (0, 6, 15, 93, 94, 387), (6, 93, 387), 17
+#: Ring radii past the exact float32 land counts: B1, B4 and B5 alone at
+#: these NN on a PAST_FIELD field whose cells are all land within maxdist
+#: (no window holds both classes, so every cell runs to NN); then ``diag``
+#: on a STRIP world, 32 x 2200 cells 0.009 deg apart from 54 N, with
+#: maxdist = STRIP_MAXDIST km: k = 2200, NN = 2204, STRIP_STEPS steps.
+PAST_NN, PAST_FIELD = (2048, 2204), (64, 128)
+STRIP_SHAPE, STRIP_MAXDIST, STRIP_STEPS = (32, 2200), 3000.0, 2
 
 
 def log(msg):
@@ -197,22 +209,47 @@ BOUND_TILE = (16, 32)
 RING_ADDS = 3 * (4 + 2 + 2)
 
 
+#: The widest ring radius whose land counts are exact in float32: the
+#: window's cell count, (2 NN + 1)^2, passes 2^24 past it.
+EXACT_NN = 2047
+
+
 def latch_radius(cd_pad, cd, nn, maxdist):
     """(h, w) int32: the radius at which each coastal cell latches (the
     first nn whose window holds land and sea, else NN), 0 off the band;
-    from box counts of land over an integral image."""
+    from box counts of land over an integral image, and past
+    :data:`EXACT_NN` from the float32 running count the plain version
+    carries (each radius adding the window's new top and bottom rows and
+    left and right columns, then the sea count as the cell count, rounded
+    to float32, less it)."""
     import torch
     import torch.nn.functional as F
     h, w = cd.shape
     land = (cd_pad >= 0).to(torch.int32)
     ii = F.pad(land.cumsum(0).cumsum(1), (1, 0, 1, 0))
+
+    def box(y0, x0, y1, x1):
+        """Land cells of rows nn+y0..nn+y1, columns nn+x0..nn+x1 about
+        each cell."""
+        a, b, c, d = nn + y0, nn + y1 + 1, nn + x0, nn + x1 + 1
+        return (ii[b:b + h, d:d + w] - ii[a:a + h, d:d + w]
+                - ii[b:b + h, c:c + w] + ii[a:a + h, c:c + w])
+
     r = torch.full((h, w), nn, dtype=torch.int32, device=cd.device)
     done = torch.zeros((h, w), dtype=torch.bool, device=cd.device)
+    n_l = None
     for m in range(1, nn + 1):
-        a, b = nn - m, nn + m + 1
-        cnt = (ii[b:b + h, b:b + w] - ii[a:a + h, b:b + w]
-               - ii[b:b + h, a:a + w] + ii[a:a + h, a:a + w])
-        ok = (cnt > 0) & (cnt < (2 * m + 1) ** 2)
+        if m <= EXACT_NN:
+            cnt = box(-m, -m, m, m)
+            ok = (cnt > 0) & (cnt < (2 * m + 1) ** 2)
+            if m == EXACT_NN:
+                n_l = cnt.to(torch.float32)
+        else:
+            for part in (box(-m, -m, -m, m), box(m, -m, m, m),
+                         box(1 - m, -m, m - 1, -m), box(1 - m, m, m - 1, m)):
+                n_l = n_l + part.to(torch.float32)
+            n_s = float(np.float32((2 * m + 1) ** 2)) - n_l
+            ok = (n_l > 0) & (n_s > 0)
         r = torch.where(ok & ~done, m, r)
         done |= ok
     return torch.where(cd.abs() <= float(np.float32(maxdist)), r, 0)
@@ -321,7 +358,7 @@ def phase_pass2(name, out):
     sdphi2, po, sdlam2 = device_tables(grid, k, dev)
     coast = get_edges(torch.as_tensor(lsm, device=dev),
                       torch.as_tensor(ci[0], device=dev))
-    Mmin = pass1_extrema(pad_coast(coast, k), sdlam2, k)
+    Mmin, _ = pass1_extrema(pad_coast(coast, k), sdlam2, k)
     got = pass2_min_cuda(Mmin, sdphi2, po, k).cpu().numpy()
     ref = pass2_min(Mmin, sdphi2, po, k).cpu().numpy()
     if not np.array_equal(got > BIG / 2, ref > BIG / 2):
@@ -781,7 +818,7 @@ def fused_regional(world, what):
     nbytes, ops = b3_bound(cpad, amin, k)
     none = "none: no PyTorch call runs a masked min over a separable window"
     return dict(max_abs_err=err, k=k, hybrid_ms=call_ms(
-        lambda: pass2_min_cuda(pass1_extrema(cpad, tabs[2], k), tabs[0],
+        lambda: pass2_min_cuda(pass1_extrema(cpad, tabs[2], k)[0], tabs[0],
                                tabs[1], k), reps=3),
         **timing(b3, lambda: min_haversine_param_from_padded(
             cpad, *tabs, k), nbytes, ops, library_note=none,
@@ -927,13 +964,14 @@ def kernel_wrappers():
     """Name -> wrapper (whose ``launches`` counts its kernel) of every
     kernel of the port."""
     from seabreeze_param_tpu_torch.ops.cuda.distance_kernel import (
-        min_haversine_param_cuda, pass2_min_cuda)
+        min_haversine_param_cuda, pass2_min_cuda, pass2_min_two_cuda)
     from seabreeze_param_tpu_torch.ops.cuda.halo_kernel import (
         halo_exchange_cuda)
     from seabreeze_param_tpu_torch.ops.cuda.ring_kernel import (
         ring_thc_cuda_padded, ring_trigger_cuda_padded,
         ring_trigger_cuda_stacked)
     return {"pass2_min": pass2_min_cuda,
+            "pass2_min_two": pass2_min_two_cuda,
             "ring_trigger_stacked": ring_trigger_cuda_stacked,
             "min_haversine": min_haversine_param_cuda,
             "ring_trigger_padded": ring_trigger_cuda_padded,
@@ -1016,7 +1054,7 @@ def phase_padded(name, out):
     res["min_haversine"] = dict(
         max_abs_err=err,
         hybrid_ms=device_ms(lambda: pass2_min_cuda(
-            pass1_extrema(cpad, tabs[2], k), tabs[0], tabs[1], k)),
+            pass1_extrema(cpad, tabs[2], k)[0], tabs[0], tabs[1], k)),
         **timing(b3, lambda: min_haversine_param_from_padded(cpad, *tabs, k),
                  *b3_bound(cpad, amin, k), library_note=none))
 
@@ -1863,7 +1901,7 @@ def wide_kernels(world, what):
                                         monotone=tabs.monotone,
                                         row_monotone=flags)
 
-    mmin = pass1_extrema(cpad, sdlam2, k)
+    mmin, _ = pass1_extrema(cpad, sdlam2, k)
 
     def b2(flags=rows):
         return pass2_min_cuda(mmin, sdphi2, po, k, row_monotone=flags)
@@ -2037,6 +2075,335 @@ def device_kernels(fn):
     if not seen:
         return None
     return [n for n in seen if not n.startswith(("Memcpy", "Memset"))]
+
+
+def phase_nearest(out):
+    """The nearest lon form (``TriggerPipeline(distance_lon_form=
+    'nearest')``, whose ``'auto'`` on the card is the hybrid: torch pass 1
+    by min-plus doubling, then B2) over the main world's 32 steps with its
+    inputs on the card, against the plain path in the same form (per-step
+    tolerance, final wind bit-equal), timed beside the taps' hybrid and the
+    fused run in this process; then one step at 0.1 deg (1801 x 3600, k =
+    15) against its plain path."""
+    import torch
+    from seabreeze_param_tpu_torch.core.state import TriggerState
+    from seabreeze_param_tpu_torch.models.pipeline import TriggerPipeline
+    dev = torch.device("cuda")
+
+    def run(pipe, d, reps=1):
+        T, nlat, nlon = d[0].shape
+        times = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r = pipe.run(TriggerState.zeros((nlat, nlon), dev), *d[:7],
+                         ci_t=d[7])
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) / T * 1e3)
+        return r, float(np.median(times))
+
+    res, worst, launches = {}, {}, {}
+    for name in ("global025", "global010"):
+        if name == "global025":
+            grid, fields = main_world()
+        else:
+            from bench import make_world
+            grid = world_grid(name)[0]
+            fields = make_world(grid.nlat, grid.nlon, 4, 1, seed=3)
+        lsm, z, std, pres, theta, u, v, ci = fields
+        d = [torch.as_tensor(a, device=dev)
+             for a in (theta, u, v, lsm, z, std, pres, ci)]
+        T = theta.shape[0]
+        pipes = {uk: TriggerPipeline(grid, device=dev, use_kernels=uk,
+                                     distance_lon_form="nearest")
+                 for uk in (None, False)}
+        run(pipes[None], d)                     # warm-up
+        zero_launches()
+        (kstate, kout), kms = run(pipes[None], d)
+        launches[name] = {n: c for n, c in read_launches().items() if c}
+        want = {"pass2_min": T, "ring_trigger_stacked": T}
+        if launches[name] != want:
+            raise AssertionError(f"nearest {name} launches "
+                                 f"{launches[name]}, want {want}")
+        (pstate, pout), pms = run(pipes[False], d)
+        worst[name] = check_fields({k: o.cpu() for k, o in kout.items()},
+                                   {k: o.cpu() for k, o in pout.items()},
+                                   f"nearest {name} per-step outputs")
+        check_fields(final_fields(kstate), final_fields(pstate),
+                     f"nearest {name} final state",
+                     bit_state=("windspeed", "winddir"))
+        sb = kout["sb_con"]
+        if sb.shape != theta.shape or not torch.isfinite(sb).all():
+            raise AssertionError(f"nearest {name}: sb_con shape or "
+                                 f"finiteness")
+        bits = all(torch.equal(kout[k], pout[k]) for k in kout)
+        res[name] = dict(ms_per_step=kms, plain_ms_per_step=pms, T=T,
+                         k=pipes[None].k, bit_equal=bits)
+        if name == "global025":
+            # the taps' hybrid and the fused run, in turns with the nearest
+            others = {impl: TriggerPipeline(grid, device=dev,
+                                            distance_impl=impl)
+                      for impl in ("hybrid", "fused")}
+            ms = {"nearest": [], "hybrid": [], "fused": []}
+            for _ in range(3):
+                for label, pipe in (("nearest", pipes[None]),
+                                    *others.items()):
+                    ms[label].append(run(pipe, d)[1])
+            res[name]["turns_ms_per_step"] = {
+                k: float(np.median(v)) for k, v in ms.items()}
+    g, h = res["global025"], res["global010"]
+    log(f"# nearest lon form (TriggerPipeline(distance_lon_form='nearest')"
+        f".run, inputs resident): global025 T={g['T']} k={g['k']}: kernel "
+        f"path {g['ms_per_step']:.3f} ms/step, plain "
+        f"{g['plain_ms_per_step']:.3f}; launches {launches['global025']}; "
+        f"matches plain (max "
+        f"|diff| {worst['global025']:.3g}, final ws/wd bit-equal, all "
+        f"outputs bit-equal: {g['bit_equal']}); median of 3 turns ms/step: "
+        + ", ".join(f"{k} {v:.3f}" for k, v in
+                    g["turns_ms_per_step"].items())
+        + f"; global010 T={h['T']} k={h['k']}: kernel path "
+        f"{h['ms_per_step']:.3f} ms/step, plain "
+        f"{h['plain_ms_per_step']:.3f}, launches {launches['global010']}, "
+        f"matches plain (max |diff| "
+        f"{worst['global010']:.3g}, bit-equal: {h['bit_equal']})")
+    out.update(res=res, launches=launches)
+
+
+def two_extremum_inputs(grid, lsm, ci, k, dev):
+    """B2's two-extremum inputs on one world's coastline at radius ``k``:
+    pass 1's extrema (``need_max=True``), the grid's sdphi2 (its rows'
+    flags set: they fall to the centre tap) and po drawn from [-1, 1]."""
+    import torch
+    from seabreeze_param_tpu_torch.ops.coastline import get_edges
+    from seabreeze_param_tpu_torch.ops.distance import (
+        device_tables, pad_coast, pass1_extrema)
+    tabs = device_tables(grid, k, dev)
+    coast = get_edges(torch.as_tensor(lsm, device=dev),
+                      torch.as_tensor(ci, device=dev))
+    mmin, mmax = pass1_extrema(pad_coast(coast, k), tabs[2], k,
+                               need_max=True)
+    rng = np.random.default_rng(TWO_SEED + k)
+    po = torch.as_tensor((2 * rng.random(tabs[1].shape) - 1).astype(
+        np.float32), device=dev)
+    return mmin, mmax, tabs[0], po, tabs.row_monotone
+
+
+def phase_two_extremum(out):
+    """B2's two-extremum form (``pass2_min_cuda(Mmax=)``), which no entry
+    point takes: first as a standalone op on the 8 coupled steps' extrema
+    with the grid's own tables (po >= 0), where it equals the single
+    form's result bit for bit (its launches are the row's); then alone on
+    the main world's coastline at each of :data:`TWO_RADII` with po drawn
+    from [-1, 1] (where the forms differ), bit-equal to its plain version
+    with the rows' flags and without, timed at :data:`TWO_TIMED` and at 0.1
+    deg (k = 15)."""
+    import torch
+    from bench import make_world
+    from seabreeze_param_tpu_torch.ops.coastline import get_edges
+    from seabreeze_param_tpu_torch.ops.cuda.distance_kernel import (
+        pass2_min_cuda, pass2_min_two_limits)
+    from seabreeze_param_tpu_torch.ops.distance import (
+        device_tables, effective_radius, pad_coast, pass1_extrema, pass2_min)
+    dev = torch.device("cuda")
+    grid, d = coupled_inputs(dev)
+    k = effective_radius(grid, 180.0)
+    tabs = device_tables(grid, k, dev)
+    ext = []
+    for s in range(len(COUPLED_STEPS)):
+        cpad = pad_coast(get_edges(d["lsm"], d["ci"][s]), k)
+        ext.append(pass1_extrema(cpad, tabs[2], k, need_max=True))
+    zero_launches()
+    two = [pass2_min_cuda(mn, tabs[0], tabs[1], k, Mmax=mx)
+           for mn, mx in ext]
+    launches = read_launches()["pass2_min_two"]
+    if launches != len(ext):
+        raise AssertionError(f"pass2_min_two launched {launches} times")
+    for s, ((mn, _), got) in enumerate(zip(ext, two)):
+        bit_equal(got, pass2_min_cuda(mn, tabs[0], tabs[1], k),
+                  f"B2 two-extremum, coupled step {s}, vs the single form")
+
+    staged = pass2_min_two_limits()
+    if staged + 1 not in TWO_RADII or staged not in TWO_RADII:
+        raise AssertionError(f"the two-extremum staged limit {staged} is "
+                             f"not among {TWO_RADII}")
+    none = ("none: no single PyTorch call takes a min over a weighted lat "
+            "window")
+    mgrid, (lsm, *_, ci) = main_world()
+    res, errs = {}, {}
+    for name, radii in (("global025", TWO_RADII), ("global010", (15,))):
+        if name == "global010":
+            mgrid = world_grid(name)[0]
+            lsm, *_, ci = make_world(mgrid.nlat, mgrid.nlon, 1, 1, seed=3)
+        for kk in radii:
+            mn, mx, sd, po, rows = two_extremum_inputs(
+                mgrid, lsm, ci[0], kk, dev)
+            ref = pass2_min(mn, sd, po, kk, Mmax=mx)
+            # one column a window (k = 0) has Mmax = Mmin
+            if kk and not bool((ref < pass2_min(mn, sd, po, kk)).any()):
+                raise AssertionError(f"B2 two-extremum k={kk}: the forms "
+                                     f"agree, so Mmax is not read")
+            errs[name, kk] = max(bit_equal(
+                pass2_min_cuda(mn, sd, po, kk, Mmax=mx, row_monotone=f),
+                ref, f"B2 two-extremum {name} k={kk}") for f in (rows, None))
+            if name == "global025" and kk not in TWO_TIMED:
+                continue
+            h, w = ref.shape
+            nwin = 2 * kk + 1
+            reach = int((ref < float(BIG) / 2).sum())
+            res[name if kk in (6, 15) else f"k{kk}"] = dict(
+                max_abs_err=errs[name, kk], k=kk, **timing(
+                    lambda: pass2_min_cuda(mn, sd, po, kk, Mmax=mx),
+                    lambda: pass2_min(mn, sd, po, kk, Mmax=mx),
+                    4 * (2 * mn.numel() + h * w + 2 * h * nwin),
+                    4 * nwin * reach, library_note=none,
+                    plain_queued=nwin > 64))
+    log(f"# B2 two-extremum: standalone on the {len(ext)} coupled steps "
+        f"(k={k}, the grid's po >= 0): {launches} launches, bit-equal to "
+        f"the single form; alone with po in [-1, 1] bit-equal to plain at "
+        f"k = " + ", ".join(f"{n} {kk}" for n, kk in errs)
+        + f" (staged to k = {staged}, with and without row flags); "
+        + "; ".join(f"{r} k={t['k']}: {fmt_timing(t)}"
+                    for r, t in res.items()))
+    out.update(launches=launches, res=res, staged=staged)
+
+
+def strip_world():
+    """STRIP_SHAPE cells 0.009 deg (1 km) apart from 54 N southward,
+    STRIP_STEPS steps of ``bench.make_world`` fields (seed 3)."""
+    from bench import make_world
+    from seabreeze_param_tpu_torch.core.grid import Grid
+    n, m = STRIP_SHAPE
+    grid = Grid.regular(n, m, lat0=54.0, lat1=54.0 - (n - 1) * KM_SPACING,
+                        lon0=0.0, lon1=m * KM_SPACING)
+    return grid, make_world(n, m, 4, STRIP_STEPS, seed=3)
+
+
+def phase_past_2047(out):
+    """Ring radii past :data:`EXACT_NN`, where the float32 land count
+    rounds: B1, B4 and B5 alone at :data:`PAST_NN` on a field of land cells
+    all within maxdist (every cell runs to NN, latched on the rounded
+    count), each bit-equal to its plain version and timed; then ``diag`` on
+    the strip world (:func:`strip_world`, k = 2200, NN = 2204: B1 and B3's
+    large builds) against its plain path."""
+    import torch
+    from seabreeze_param_tpu_torch.api import diag
+    from seabreeze_param_tpu_torch.core.params import Params
+    from seabreeze_param_tpu_torch.ops.cuda.ring_kernel import (
+        StackedScan, ring_thc_cuda_padded, ring_trigger_cuda_padded,
+        ring_trigger_cuda_stacked)
+    from seabreeze_param_tpu_torch.ops.ring_search import (
+        ring_quantities, ring_thc_from_padded)
+    from seabreeze_param_tpu_torch.ops.trigger import cadence, trigger_cells
+    dev = torch.device("cuda")
+    params = Params()
+    h, w = PAST_FIELD
+    none = "none: no PyTorch call runs an expanding-ring search"
+    res = {}
+    for nn in PAST_NN:
+        rng = np.random.default_rng(nn)
+        D = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
+        cd_pad = D((50.0 + 100.0 * rng.random((h + 2 * nn, w + 2 * nn)))
+                   .astype(np.float32))
+        t0_pad = D((280.0 + 10.0 * rng.random(cd_pad.shape)).astype(
+            np.float32))
+        cd = cd_pad[nn:nn + h, nn:nn + w].contiguous()
+        ws_new, wd_new, ws0, wd0 = (D(a) for a in (
+            (5 + 3 * rng.random((h, w))).astype(np.float32),
+            (360 * rng.random((h, w)) - 180).astype(np.float32),
+            (5 + rng.random((h, w))).astype(np.float32),
+            (360 * rng.random((h, w)) - 180).astype(np.float32)))
+        flags = cadence(15, params)
+        ref = trigger_cells(cd, ws_new, wd_new, ws0, wd0, t0_pad, cd_pad,
+                            *flags, params, nn)
+        scan = StackedScan(h, w, params, dev)
+        bufs = scan.init_buffers(1, ws0, wd0)
+        ever = scan.add_coastal(cd)
+        ws_s, wd_s = ws0.clone(), wd0.clone()
+
+        def b1():
+            ring_trigger_cuda_stacked(t0_pad, cd_pad, cd, ws_new, wd_new,
+                                      ws_s, wd_s, *flags, params, nn, 0,
+                                      *bufs, ever)
+
+        def b4():
+            return ring_trigger_cuda_padded(t0_pad, cd_pad, cd, ws_new,
+                                            wd_new, ws0, wd0, *flags, params,
+                                            nn)
+
+        def b5():
+            return ring_thc_cuda_padded(t0_pad, cd_pad, cd, nn)
+
+        def b5_plain():
+            return ring_thc_from_padded(
+                ring_quantities(t0_pad, cd_pad),
+                torch.where(cd >= 0, 1.0, -1.0), nn,
+                coastal=cd.abs() <= float(np.float32(params.maxdist)))[0]
+
+        def plain():
+            return trigger_cells(cd, ws_new, wd_new, ws0, wd0, t0_pad,
+                                 cd_pad, *flags, params, nn)
+
+        b1()
+        err1 = max(bit_equal(b[0], r, f"NN={nn} B1 {f}")
+                   for b, r, f in zip(bufs, ref, ("sb", "ws", "wd")))
+        err4 = max(bit_equal(g, r, f"NN={nn} B4 {f}") for g, r, f in zip(
+            b4(), (ref[0], ref[3], ref[4]), ("sb", "ws", "wd")))
+        err5 = bit_equal(b5(), b5_plain(), f"NN={nn} B5")
+        unit = tile_mask(cd, params.maxdist)
+        _, cells, adds = ring_work(cd_pad, cd, nn, params.maxdist, unit)
+        # every tile is coastal, so the windows read the whole padded pair:
+        # B1 reads it and the five other fields, and writes five
+        pad_bytes = 4 * (t0_pad.numel() + cd_pad.numel())
+        res[f"nn{nn}"] = dict(max_abs_err=err1, nn=nn, **timing(
+            b1, plain, pad_bytes + 40 * cells + unit.numel(), adds,
+            library_note=none, plain_queued=True))
+        res[f"b4_nn{nn}"] = dict(max_abs_err=err4, nn=nn, **timing(
+            b4, plain, pad_bytes + 32 * h * w, adds, library_note=none,
+            plain_queued=True))
+        res[f"b5_nn{nn}"] = dict(max_abs_err=err5, nn=nn, **timing(
+            b5, b5_plain, pad_bytes + 8 * h * w, adds, library_note=none,
+            plain_queued=True))
+
+    grid, (lsm, z, std, pres, theta, u, v, ci) = strip_world()
+    T, nlat, nlon = theta.shape
+    args = (1, lsm, z, std, grid.lon, grid.lat, pres, u, v, theta, ci)
+
+    def run(**kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = diag(*args, device="cuda", full_output=True,
+                 maxdist=STRIP_MAXDIST, **kw)
+        torch.cuda.synchronize()
+        return r, (time.perf_counter() - t0) / T * 1e3
+
+    zero_launches()
+    kern, kms = run()
+    launches = {n: c for n, c in read_launches().items() if c}
+    want = {"ring_trigger_stacked": T, dist_kernel(): T + 1}  # + the probe
+    if launches != want:
+        raise AssertionError(f"strip diag launches {launches}, want {want}")
+    nn = diag_nn(grid)
+    if nn <= EXACT_NN:
+        raise AssertionError(f"strip diag ran at NN = {nn} <= {EXACT_NN}")
+    plain, pms = run(use_kernels=False)
+    worst = check_fields(kern[5], plain[5], "strip diag per-step outputs")
+    check_fields(dict(thc=kern[2], windspeed=kern[3], winddir=kern[4]),
+                 dict(thc=plain[2], windspeed=plain[3], winddir=plain[4]),
+                 "strip diag final state", bit_state=("windspeed", "winddir"))
+    sb = kern[1]
+    if sb.shape != (T, nlat, nlon) or not np.isfinite(sb).all():
+        raise AssertionError("strip diag: sb_con shape or finiteness")
+    log(f"# ring radii past {EXACT_NN} ({h}x{w} land within maxdist, every "
+        f"cell to NN): B1, B4, B5 bit-equal to plain at NN = "
+        + ", ".join(str(n) for n in PAST_NN) + "; "
+        + "; ".join(f"{r} {fmt_timing(t)}" for r, t in res.items())
+        + f"; diag on {nlat}x{nlon} at {KM_SPACING} deg from 54 N, maxdist "
+        f"{STRIP_MAXDIST:g} km (NN={nn}), T={T}: kernel path {kms:.3f} "
+        f"ms/step, plain {pms:.3f} (probe included, no warm-up); launches "
+        f"{launches}; matches plain (max |diff| {worst:.3g}, final ws/wd "
+        f"bit-equal), sb missing fraction {float((sb == MISSING).mean()):.4f}")
+    out.update(res=res, launches=launches, nn=nn, ms_per_step=kms,
+               plain_ms_per_step=pms)
 
 
 def phase_kernels_a_call(wide):
@@ -2311,6 +2678,7 @@ def main():
     coupling, fused, dummy = {}, {}, {}
     b6, sharded, diag_mesh, dummy_sharded, driver = {}, {}, {}, {}, {}
     fine, km, wide, multiprocess = {}, {}, {}, {}
+    nearest, two, past = {}, {}, {}
     phase_build()
     for name in ("global025", "global010"):
         phase_pass2(name, b2)
@@ -2325,6 +2693,9 @@ def main():
     phase_fine(fine)
     phase_km(km)
     phase_wide(wide)
+    phase_past_2047(past)
+    phase_nearest(nearest)
+    phase_two_extremum(two)
     phase_sharded(sharded)
     phase_diag_mesh(diag_mesh)
     phase_dummy_sharded(dummy_sharded)
@@ -2394,7 +2765,21 @@ def main():
              wide["b2"], wide["run_launches"]["hybrid"]["pass2_min"],
              f"TriggerPipeline(distance_impl='hybrid').run on the 0.4 km "
              f"world (k = {WIDE_WORLDS[0][0]}): B2's unstaged build (k620: "
-             f"alone at k = 620)")):
+             f"alone at k = 620)"),
+            ("pass2_min_two", "pass2_min.cu", "distance_kernel.py:233",
+             two["res"], two["launches"],
+             f"standalone op on the coupled steps (no entry point takes the "
+             f"two-extremum form): pass2_min_cuda(Mmax=); alone with po in "
+             f"[-1, 1] at k = 6 (global025), 15 (global010), "
+             + ", ".join(str(x) for x in TWO_TIMED[1:])
+             + f" (staged to k = {two['staged']})"),
+            ("ring_trigger_stacked_past_2047", "ring_trigger.cu",
+             "ring_kernel.py:694", past["res"],
+             past["launches"]["ring_trigger_stacked"],
+             f"diag on the {STRIP_SHAPE[0]} x {STRIP_SHAPE[1]} strip world, "
+             f"maxdist {STRIP_MAXDIST:g} km, NN = {past['nn']}: B1's large "
+             f"build past NN = {EXACT_NN} (alone: B1 nn*, B4 b4_nn*, B5 "
+             f"b5_nn* on {PAST_FIELD[0]} x {PAST_FIELD[1]} land)")):
         first, *rest = meas
         m = {key: meas[first][key] for key in keys if key in meas[first]}
         # ``ms`` is the line's name for the kernel's device time

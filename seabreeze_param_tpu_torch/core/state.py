@@ -34,12 +34,13 @@ class TriggerState:
     winddir: torch.Tensor
 
     @staticmethod
-    def zeros(shape: tuple[int, int], device) -> "TriggerState":
-        """Cold-start state: zeros, tt=1.  Three distinct buffers, because
-        the kernel path updates the wind fields in place."""
+    def zeros(shape: tuple[int, int], device, tt: int = 1) -> "TriggerState":
+        """Cold-start state: zeros, tt=1 unless given.  Three distinct
+        buffers, because the kernel path updates the wind fields in
+        place."""
         def z():
             return torch.zeros(shape, dtype=torch.float32, device=device)
-        return TriggerState(tt=1, thc=z(), windspeed=z(), winddir=z())
+        return TriggerState(tt=int(tt), thc=z(), windspeed=z(), winddir=z())
 
     @property
     def shape(self):

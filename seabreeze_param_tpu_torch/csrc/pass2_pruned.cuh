@@ -39,6 +39,11 @@
 //   without taps (the unflagged routine would run every tap).
 // * The multiply and the add are rounded separately (__fmul_rn, __fadd_rn),
 //   as the plain version runs them as two torch ops.
+// * The two-extremum form (TWO, B2's sbz_pass2_min_two past its staged
+//   build) reads Mmax beside Mmin, a tap taking sdphi2 + min(po * Mmin,
+//   po * Mmax).  Its po may be negative, where a candidate may fall below
+//   its sdphi2, so the early exit's bound does not hold: it runs every tap
+//   and reads no row flags.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -63,10 +68,19 @@ __device__ __forceinline__ float candidate(float t, float q, float lo) {
   return lo > 0.5f * BIG ? BIG : c;
 }
 
-// mmin (h+2k, w); sdphi2, po (h, 2k+1); row_mono (h) or null: no row is
-// taken to have the property (every tap); coast_rows (nseg, h+2k) or null.
+__device__ __forceinline__ float candidate2(float t, float q, float lo,
+                                            float hi) {
+  const float c = __fadd_rn(t, fminf(__fmul_rn(q, lo), __fmul_rn(q, hi)));
+  return lo > 0.5f * BIG ? BIG : c;
+}
+
+// mmin (h+2k, w); TWO: mmax (h+2k, w) too; sdphi2, po (h, 2k+1); row_mono
+// (h) or null: no row is taken to have the property (every tap; TWO never
+// reads it); coast_rows (nseg, h+2k) or null.
+template <bool TWO>
 __global__ void __launch_bounds__(NT)
 pass2_pruned_kernel(const float* __restrict__ mmin,
+                    const float* __restrict__ mmax,
                     const float* __restrict__ sdphi2,
                     const float* __restrict__ po,
                     const unsigned char* __restrict__ row_mono,
@@ -79,11 +93,14 @@ pass2_pruned_kernel(const float* __restrict__ mmin,
   bool xin[CPL];
   float acc[CPL];
   const float* m[CPL];                   // the centre row, column clamped
+  const float* mx[CPL];                  // TWO: the same of mmax
 #pragma unroll
   for (int c = 0; c < CPL; ++c) {
     xin[c] = x0 + 32 * c < w;
     acc[c] = BIG;
-    m[c] = mmin + (size_t)(y + k) * w + min(x0 + 32 * c, w - 1);
+    const size_t i = (size_t)(y + k) * w + min(x0 + 32 * c, w - 1);
+    m[c] = mmin + i;
+    mx[c] = TWO ? mmax + i : m[c];
   }
   bool go = true;
   if (coast_rows != nullptr) {
@@ -97,13 +114,14 @@ pass2_pruned_kernel(const float* __restrict__ mmin,
   if (go) {
     const float* tp = sdphi2 + (size_t)y * nwin + k;   // centre tap
     const float* tq = po + (size_t)y * nwin + k;
-    const bool mono = row_mono != nullptr && row_mono[y] != 0;
+    const bool mono = !TWO && row_mono != nullptr && row_mono[y] != 0;
     float tm = 0.0f, tpl = 0.0f, qm = 0.0f, qpl = 0.0f;
     // steps j .. j+GROUP-1 each side, past k clamped to k: a tap taken
     // twice leaves the minimum as it is, so every load of a group is
     // issued before the first is used, with no branch between them
     for (int j = 0; j <= k; j += GROUP) {
       float t[2 * GROUP], q[2 * GROUP], v[2 * GROUP][CPL];
+      float u[2 * GROUP][CPL];           // TWO: the taps of mmax
       // lane l holds the entries of step j0 + l, j0 = j rounded down to 32
       if ((j & 31) == 0) {
         const int d = min(j + lane, k);
@@ -122,6 +140,10 @@ pass2_pruned_kernel(const float* __restrict__ mmin,
         for (int c = 0; c < CPL; ++c) {
           v[2 * g][c] = __ldg(m[c] - off);
           v[2 * g + 1][c] = __ldg(m[c] + off);
+          if (TWO) {
+            u[2 * g][c] = __ldg(mx[c] - off);
+            u[2 * g + 1][c] = __ldg(mx[c] + off);
+          }
         }
       }
       const int nj = j + GROUP;          // the nearest taps still to visit
@@ -132,7 +154,9 @@ pass2_pruned_kernel(const float* __restrict__ mmin,
       for (int i = 0; i < 2 * GROUP; ++i)
 #pragma unroll
         for (int c = 0; c < CPL; ++c)
-          acc[c] = fminf(acc[c], candidate(t[i], q[i], v[i][c]));
+          acc[c] = fminf(acc[c], TWO ? candidate2(t[i], q[i], v[i][c],
+                                                  u[i][c])
+                                     : candidate(t[i], q[i], v[i][c]));
       if (vote) {
         bool need = false;
 #pragma unroll
@@ -153,9 +177,21 @@ cudaError_t launch_pass2_pruned(const float* mmin, const float* sdphi2,
                                 float* out, int h, int w, int k,
                                 cudaStream_t stream) {
   const dim3 grid((w + BAND - 1) / BAND, (h + WARPS - 1) / WARPS);
-  pass2_pruned_kernel<<<grid, NT, 0, stream>>>(mmin, sdphi2, po, row_mono,
-                                               coast_rows, nseg, out, h, w,
-                                               k);
+  pass2_pruned_kernel<false><<<grid, NT, 0, stream>>>(
+      mmin, nullptr, sdphi2, po, row_mono, coast_rows, nseg, out, h, w, k);
+  return cudaGetLastError();
+}
+
+// The two-extremum form: every tap, no row flags, no coast rows.
+inline cudaError_t launch_pass2_pruned_two(const float* mmin,
+                                           const float* mmax,
+                                           const float* sdphi2,
+                                           const float* po, float* out,
+                                           int h, int w, int k,
+                                           cudaStream_t stream) {
+  const dim3 grid((w + BAND - 1) / BAND, (h + WARPS - 1) / WARPS);
+  pass2_pruned_kernel<true><<<grid, NT, 0, stream>>>(
+      mmin, mmax, sdphi2, po, nullptr, nullptr, 0, out, h, w, k);
   return cudaGetLastError();
 }
 

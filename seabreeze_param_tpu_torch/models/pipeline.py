@@ -48,9 +48,13 @@ class TriggerPipeline:
     versions for CPU tensors); False: the plain path, which exists to
     compare the kernels with it on the card.
     ``distance_impl`` — the coast-distance gather-min
-    (``ops.distance.coast_distance``): ``'auto'`` (B3 on the card),
-    ``'hybrid'`` (B2), ``'fused'`` (B3) or ``'plain'``; ``use_kernels=False``
-    makes it ``'plain'``.
+    (``ops.distance.coast_distance``): ``'auto'`` (B3 on the card, B2 with
+    the nearest lon form), ``'hybrid'`` (B2), ``'fused'`` (B3) or
+    ``'plain'``, or the JAX package's ``'xla'``/``'pallas'``;
+    ``use_kernels=False`` makes it ``'plain'``.
+    ``distance_lon_form`` — pass 1's lon form: ``'taps'`` (exact) or
+    ``'nearest'`` (a uniform global lon axis only, allclose to the taps;
+    ``ops.distance.pass1_extrema_nearest``).
     """
 
     grid: Grid
@@ -59,6 +63,7 @@ class TriggerPipeline:
     device: str | torch.device = "cuda"
     use_kernels: bool | None = None
     distance_impl: str = "auto"
+    distance_lon_form: str = "taps"
 
     @property
     def k(self) -> int:
@@ -88,10 +93,12 @@ class TriggerPipeline:
 
     def distance_from_coast(self, coast, lsm):
         """Signed coast distance from a coastline field, through the
-        pipeline's cached tables and its ``distance_impl``."""
+        pipeline's cached tables, its ``distance_impl`` and its
+        ``distance_lon_form``."""
         impl = "plain" if self.use_kernels is False else self.distance_impl
         return coast_distance(coast, lsm, self.grid, self.params.maxdist,
-                              k=self.k, tables=self._tables(), impl=impl)
+                              k=self.k, tables=self._tables(), impl=impl,
+                              lon_form=self.distance_lon_form)
 
     def distance_field(self, lsm, ci=None):
         """Coastline + signed coast distance for one (lsm, sea-ice) pair of

@@ -45,6 +45,10 @@ SIGNATURES = {
     "sbz_pass2_min": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
     # &max_staged_k: the widest k of the launcher's staged build
     "sbz_pass2_min_limits": (_P,),
+    # mmin, mmax, sdphi2, po, out, h, w, k, stream: the two-extremum form
+    "sbz_pass2_min_two": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
+    # &max_staged_k: the widest k of its staged build
+    "sbz_pass2_min_two_limits": (_P,),
     # &cols_per_lane, &group: the unstaged build's layout
     "sbz_pass2_min_layout": (_P, _P),
     # cpad, sdphi2, po, sdlam2, col_mono, out, h, w, k, stream
@@ -72,8 +76,9 @@ SIGNATURES = {
                                 _F, _F, _F, _F, _F, _P, _P),
     # t0_pad, cd_pad, cd, n_thc, h, w, nn, maxdist, scratch, stream
     "sbz_ring_thc_padded": (_P, _P, _P, _P, _I, _I, _I, _F, _P, _P),
-    # &large_from, &max_nn: the ring radii the three launchers above take
-    "sbz_ring_limits": (_P, _P),
+    # &large_from, &max_nn, &max_cells: the ring radii the three launchers
+    # above take and the most cells of a padded field (long long)
+    "sbz_ring_limits": (_P, _P, _P),
     # h, w, nn, &ints: the int32 scratch the three launchers need
     "sbz_ring_scratch": (_I, _I, _I, _P),
     # src[S], dst[S] (host pointer arrays), py, px, c, h, w, hy, hx,

@@ -6,6 +6,9 @@
   ``ops.distance.pass2_min``; every radius (past
   :func:`pass2_min_limits` an unstaged build, one warp per row visiting
   the taps centre-out with an exact early exit, ``csrc/pass2_pruned.cuh``);
+  its two-extremum form, ``pass2_min_pallas`` with ``Mmax``, is
+  :func:`pass2_min_two_cuda` (staged up to :func:`pass2_min_two_limits`,
+  then the same routine with a second channel and every tap);
 * B3 :func:`min_haversine_param_cuda` (``csrc/min_haversine.cu``, replaces
   ``min_haversine_param_pallas``): both passes fused, each block sweeping
   a band of columns; plain version
@@ -39,7 +42,17 @@ def _flags(t, name, n, dev):
     return t.data_ptr()
 
 
-def pass2_min_cuda(Mmin, sdphi2, po, k: int, *, row_monotone=None):
+def _require_pass2(Mmin, sdphi2, po, k: int):
+    """(h, w) of pass 2's output, after checking its inputs."""
+    h, w = Mmin.shape[0] - 2 * k, Mmin.shape[1]
+    _build.require(Mmin, "Mmin", (h + 2 * k, w), Mmin.device)
+    _build.require(sdphi2, "sdphi2", (h, 2 * k + 1), Mmin.device)
+    _build.require(po, "po", (h, 2 * k + 1), Mmin.device)
+    return h, w
+
+
+def pass2_min_cuda(Mmin, sdphi2, po, k: int, *, Mmax=None,
+                   row_monotone=None):
     """amin (h, w) = min over the lat window of sdphi2 + po * Mmin.
 
     ``Mmin`` (h+2k, w), ``sdphi2``/``po`` (h, 2k+1), float32, contiguous;
@@ -48,15 +61,16 @@ def pass2_min_cuda(Mmin, sdphi2, po, k: int, *, row_monotone=None):
     launches the kernel on the current stream (its staged build up to
     :func:`pass2_min_limits`, the unstaged one past it, which alone uses
     the flags); a CPU tensor takes the plain version.  Each launch adds
-    one to ``pass2_min_cuda.launches``.
+    one to ``pass2_min_cuda.launches``.  With ``Mmax`` (pass 1's maxima,
+    as Mmin) the two-extremum form, :func:`pass2_min_two_cuda`, which
+    ignores ``row_monotone``.
     """
     k = int(k)
+    if Mmax is not None:
+        return pass2_min_two_cuda(Mmin, Mmax, sdphi2, po, k)
     if Mmin.device.type == "cpu":
         return pass2_min(Mmin, sdphi2, po, k)
-    h, w = Mmin.shape[0] - 2 * k, Mmin.shape[1]
-    _build.require(Mmin, "Mmin", (h + 2 * k, w), Mmin.device)
-    _build.require(sdphi2, "sdphi2", (h, 2 * k + 1), Mmin.device)
-    _build.require(po, "po", (h, 2 * k + 1), Mmin.device)
+    h, w = _require_pass2(Mmin, sdphi2, po, k)
     rows = _flags(row_monotone, "row_monotone", h, Mmin.device)
     out = torch.empty((h, w), dtype=torch.float32, device=Mmin.device)
     lib = _build.load()
@@ -72,6 +86,36 @@ def pass2_min_cuda(Mmin, sdphi2, po, k: int, *, row_monotone=None):
 pass2_min_cuda.launches = 0
 
 
+def pass2_min_two_cuda(Mmin, Mmax, sdphi2, po, k: int):
+    """The two-extremum form of B2: amin (h, w) = min over the lat window
+    of sdphi2 + min(po * Mmin, po * Mmax), BIG where Mmin is BIG, for
+    tables whose po may be negative (``pass1_extrema(need_max=True)``
+    gives both extrema).  Shapes as :func:`pass2_min_cuda`, ``Mmax`` as
+    ``Mmin``.  A CUDA tensor launches the kernel (its staged build up to
+    :func:`pass2_min_two_limits`, then the routine of
+    ``csrc/pass2_pruned.cuh`` with a second channel, every tap), counted
+    in ``pass2_min_two_cuda.launches``; a CPU tensor takes the plain
+    version, ``ops.distance.pass2_min(..., Mmax=Mmax)``."""
+    k = int(k)
+    if Mmin.device.type == "cpu":
+        return pass2_min(Mmin, sdphi2, po, k, Mmax=Mmax)
+    h, w = _require_pass2(Mmin, sdphi2, po, k)
+    _build.require(Mmax, "Mmax", (h + 2 * k, w), Mmin.device)
+    out = torch.empty((h, w), dtype=torch.float32, device=Mmin.device)
+    lib = _build.load()
+    with torch.cuda.device(Mmin.device):
+        err = lib.sbz_pass2_min_two(
+            Mmin.data_ptr(), Mmax.data_ptr(), sdphi2.data_ptr(),
+            po.data_ptr(), out.data_ptr(), h, w, k,
+            torch.cuda.current_stream().cuda_stream)
+    _build.check(err, "pass2_min_two_cuda")
+    pass2_min_two_cuda.launches += 1
+    return out
+
+
+pass2_min_two_cuda.launches = 0
+
+
 def _read_limit(name: str) -> int:
     value = ctypes.c_int()
     getattr(_build.load(), name)(ctypes.byref(value))
@@ -85,6 +129,16 @@ def pass2_min_limits() -> int:
     wider k runs the unstaged build.  Read from the built kernels, which
     it builds at the first call."""
     return _read_limit("sbz_pass2_min_limits")
+
+
+@functools.cache
+def pass2_min_two_limits() -> int:
+    """The widest radius k of the two-extremum form's staged build
+    (MAX_STAGED_K2 in csrc/pass2_min.cu: it stages two strips, Mmin and
+    Mmax, so it stops at a narrower k than :func:`pass2_min_limits`);
+    wider k runs every tap of the routine of ``csrc/pass2_pruned.cuh``.
+    Read from the built kernels, which it builds at the first call."""
+    return _read_limit("sbz_pass2_min_two_limits")
 
 
 @functools.cache

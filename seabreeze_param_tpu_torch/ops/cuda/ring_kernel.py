@@ -20,10 +20,13 @@ needs ``torch.nonzero``, which waits for the device, so here the mask stays
 on the device and the kernel compacts it itself: a persistent grid of G
 blocks (as many as the card holds at once), each ranking the set tiles and
 running those of rank b, b + G, b + 2G, ...  B4 and B5 launch one block
-per tile.  On the card the three take ring radii NN up to the limit that
+per tile.  On the card the three take ring radii NN up to the limits that
 :func:`ring_limits` reads from the kernels and raise beyond; from its
-first radius on, their large build takes scratch for an integral image of
-the padded land mask, which the wrappers allocate (:func:`_scratch`).
+first radius on, their large build takes scratch for an int32 integral
+image of the padded land mask, which the wrappers allocate
+(:func:`_scratch`).  Past 2047 the window's cell count passes 2^24 and the
+plain version's float32 land count rounds; the large build carries the
+same float chain there, bit-equal to it.
 """
 from __future__ import annotations
 
@@ -45,20 +48,33 @@ TILE = (16, 32)
 def ring_limits():
     """``(large_from, max_nn)``, read from the built kernels: the first ring
     radius NN of their large build and the widest NN any build takes
-    (LARGE_FROM and MAX_NN in csrc/ring_trigger.cu).  Builds the kernels at
-    the first call."""
+    (LARGE_FROM and MAX_NN in csrc/ring_trigger.cu, where the int32
+    integral image of a one-cell field's padded land mask still holds).
+    Builds the kernels at the first call."""
+    return _limits()[:2]
+
+
+@functools.cache
+def _limits():
+    """``(large_from, max_nn, max_cells)`` of ``sbz_ring_limits``: also the
+    most cells a padded field may have (the int32 integral image)."""
     large_from, max_nn = ctypes.c_int(), ctypes.c_int()
+    cells = ctypes.c_longlong()
     _build.load().sbz_ring_limits(ctypes.byref(large_from),
-                                  ctypes.byref(max_nn))
-    return large_from.value, max_nn.value
+                                  ctypes.byref(max_nn), ctypes.byref(cells))
+    return large_from.value, max_nn.value, cells.value
 
 
-def _require_nn(NN: int, name: str):
-    max_nn = ring_limits()[1]
+def _require_nn(NN: int, h: int, w: int, name: str):
+    large_from, max_nn, max_cells = _limits()
     if NN > max_nn:
         raise ValueError(f"{name}: NN = {NN}, the ring kernels take NN <= "
-                         f"{max_nn} (past it the window's cell count is not "
-                         f"exact in float32)")
+                         f"{max_nn} (the int32 integral image of land)")
+    cells = (h + 2 * NN) * (w + 2 * NN)
+    if NN >= large_from and cells > max_cells:
+        raise ValueError(f"{name}: the padded field has {cells} cells, the "
+                         f"ring kernels take at most {max_cells} at NN >= "
+                         f"{large_from} (the int32 integral image of land)")
 
 
 def _scratch(h: int, w: int, NN: int, device):
@@ -169,7 +185,7 @@ def ring_trigger_cuda_stacked(t0_pad, cd_pad, cd_center, ws_new, wd_new,
         wd_state.copy_(wd_st)
         return
 
-    _require_nn(NN, "ring_trigger_cuda_stacked")
+    _require_nn(NN, h, w, "ring_trigger_cuda_stacked")
     dev = t0_pad.device
     T = sb_buf.shape[0]
     if not 0 <= step_idx < T:
@@ -242,7 +258,7 @@ def ring_trigger_cuda_padded(t0_pad, cd_pad, cd_center, ws_new, wd_new,
             nlat_total=nlat_total)
         return sb, ws_st, wd_st
 
-    _require_nn(NN, "ring_trigger_cuda_padded")
+    _require_nn(NN, *cd_center.shape, "ring_trigger_cuda_padded")
     h, w, dev = _require_pads(t0_pad, cd_pad, cd_center, NN)
     nlat_total = h if nlat_total is None else int(nlat_total)
     for name, t in (("ws_new", ws_new), ("wd_new", wd_new),
@@ -291,7 +307,7 @@ def ring_thc_cuda_padded(t0_pad, cd_pad, cd_center, nn_max: int, *,
         return ring_thc_from_padded(ring_quantities(t0_pad, cd_pad), mul, NN,
                                     coastal=coastal)[0]
 
-    _require_nn(NN, "ring_thc_cuda_padded")
+    _require_nn(NN, *cd_center.shape, "ring_thc_cuda_padded")
     h, w, dev = _require_pads(t0_pad, cd_pad, cd_center, NN)
     out = torch.empty((h, w), dtype=torch.float32, device=dev)
     lib = _build.load()

@@ -86,3 +86,12 @@ def pad2d(field, pad_lat: int, pad_lon: int, *, exact_lon: bool = True):
             out = torch.cat([out[..., :, nlon - pad_lon:], out,
                              out[..., :, :pad_lon]], dim=-1)
     return out
+
+
+def remap_lon_quirky(field):
+    """Re-index the unpadded columns of a (..., nlat, nlon) tensor through
+    the quirky map: column nlon-1 aliases column 0 when addressed as a
+    window centre (Fortran ``modulo(nlons, nlons) == 0``), which
+    :func:`pad2d` already does for the padded copy; for code that indexes
+    centres directly."""
+    return torch.cat([field[..., :, :-1], field[..., :, :1]], dim=-1)

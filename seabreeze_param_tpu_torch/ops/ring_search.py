@@ -83,7 +83,9 @@ def required_ring_radius_host(cdist, maxdist, *, exact_lon: bool = True,
 
 def ring_quantities(t0, cdist):
     """The three window summands t0*land, land, t0*sea, stacked (3, h, w).
-    The sea count is (2nn+1)^2 - n_land, exact in float32."""
+    The sea count is (2nn+1)^2 - n_land in float32: exact up to nn = 2047,
+    rounded past it (the cell count passes 2^24), as the JAX package
+    forms it."""
     land = (cdist >= 0.0).to(torch.float32)
     tl = t0 * land
     return torch.stack([tl, land, t0 - tl])
@@ -122,7 +124,8 @@ def ring_thc_from_padded(P, mul, nn_max: int, *, coastal=None):
         Vc = Vc + P[:, NN - nn:NN - nn + h, :] + P[:, NN + nn:NN + nn + h, :]
 
         t_l, n_l, t_s = W[0], W[1], W[2]
-        n_s = float((2 * nn + 1) ** 2) - n_l
+        # the cell count rounded to float32 first, as JAX forms it
+        n_s = float(np.float32((2 * nn + 1) ** 2)) - n_l
         ok = (n_l > 0.0) & (n_s > 0.0)
         last = (ok | (nn == NN)) & ~found
         Tl = torch.where(last, t_l, Tl)

@@ -34,6 +34,10 @@ padding rows out through ``valid_mask``; outputs are sliced back to the
 real rows): see the JAX module's docstring, which this port follows step
 for step.
 
+Pass 1's nearest lon form (the pipeline's ``distance_lon_form``) is
+checked on the global grid and k, as in the JAX package, and each shard's
+distance takes its ``half_dlam``.
+
 Over a multi-process mesh (``parallel.distributed``) each process runs its
 own block of mesh rows (:meth:`ShardedPipeline.run_block`): the halo-width
 guard and the choice of structure stay per shard, the lat padding, the
@@ -52,7 +56,8 @@ from ..core.grid import Grid
 from ..core.state import TriggerState
 from ..models.pipeline import TriggerPipeline, _f32
 from ..ops.coastline import make_mask, sobel_edges_from_padded
-from ..ops.distance import coast_distance_from_padded, device_tables
+from ..ops.distance import (coast_distance_from_padded, device_tables,
+                             uniform_half_dlam)
 from ..ops.orography import sigmoid_weight_shards
 from ..ops.trigger import (sea_level_temperature, trigger_core,
                            trigger_core_stacked, trigger_step_shards,
@@ -122,6 +127,14 @@ class ShardedPipeline:
                                             pipe.use_kernels)
         self.distance_impl = ("plain" if pipe.use_kernels is False
                               else pipe.distance_impl)
+        # the nearest lon form, checked on the global grid and k
+        self.half_dlam = None
+        if pipe.distance_lon_form == "nearest":
+            self.half_dlam = uniform_half_dlam(grid, self.k)
+            if self.half_dlam is None:
+                raise ValueError(
+                    "distance_lon_form='nearest' needs a uniform global "
+                    "lon axis with k*dlam <= 180 deg")
         # Halo-width guard: every exchanged width must fit inside one
         # shard, in lon strictly when the quirky seam patches are on (at
         # hx == w the copy of global column nlon-1 in a neighbour's
@@ -163,7 +176,8 @@ class ShardedPipeline:
         params = self.pipeline.params
         return [coast_distance_from_padded(cp, lsm, tab, self.k,
                                            params.maxdist,
-                                           impl=self.distance_impl)
+                                           impl=self.distance_impl,
+                                           half_dlam=self.half_dlam)
                 for cp, lsm, tab in zip(cpads, lsm_s, tables)]
 
     # ------------------------------------------------------------------

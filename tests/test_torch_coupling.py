@@ -285,21 +285,26 @@ def test_pipeline_step_matches_jax(small_case, with_ci):
 def test_step_distance_impls_agree(small_case):
     """``distance_impl``: 'fused' and 'hybrid' take their kernels' plain
     versions on the CPU, 'auto' resolves to 'plain' there (and to 'fused'
-    on the card), so all four give one distance field; a bad name is
-    refused."""
+    on the card, 'hybrid' with the nearest lon form), and the JAX
+    package's 'xla' and 'pallas' are 'plain' and 'fused', so all six give
+    one distance field; a bad name is refused."""
     c = small_case
     _, tg = _grids(c)
     lsm, ci = (torch.as_tensor(a) for a in (c["lsm"], c["ci_t"][2]))
+    impls = tdist.IMPLS + tuple(tdist.IMPL_ALIASES)
     fields = [TriggerPipeline(tg, device="cpu", distance_impl=impl,
                               use_kernels=True).distance_field(lsm, ci)
-              for impl in tdist.IMPLS]
+              for impl in impls]
     for f in fields[1:]:
         torch.testing.assert_close(f, fields[0], rtol=0, atol=0)
     assert tdist.resolve_impl("auto", "cpu") == "plain"
     assert tdist.resolve_impl("auto", "cuda") == "fused"
-    with pytest.raises(ValueError, match="pallas"):
+    assert tdist.resolve_impl("auto", "cuda", "nearest") == "hybrid"
+    assert tdist.resolve_impl("xla", "cuda") == "plain"
+    assert tdist.resolve_impl("pallas", "cpu") == "fused"
+    with pytest.raises(ValueError, match="mosaic"):
         TriggerPipeline(tg, device="cpu",
-                        distance_impl="pallas").distance_field(lsm, ci)
+                        distance_impl="mosaic").distance_field(lsm, ci)
 
 
 def test_dummy_model_matches_jax():

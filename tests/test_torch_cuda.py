@@ -13,8 +13,12 @@ every radius (past ``min_haversine_limits``, 354, its large build; B2
 past ``pass2_min_limits``, 175, its unstaged build), B4 the per-step
 coupling path, B5 the ring search alone, B6 the halo exchange of the
 decomposed run (``ShardedPipeline``), on ragged, 1-wide and 64-shard
-meshes.  B1, B4 and B5 run ring radii up to the widest their kernels take
-(``ring_limits``: 2047, from 52 on their large build).
+meshes.  B1, B4 and B5 run ring radii from 1 to 2204, past the 2047 at
+which the window's cell count passes 2^24 and the float32 land count
+rounds (from 52 on their large build; ``ring_limits``).  B2's
+two-extremum form (``pass2_min_two_cuda``) runs on the same shapes as its
+single form, with negative po.  The nearest lon form's hybrid run (torch
+pass 1 + B2) is held to its plain path at 0.25 deg.
 """
 import numpy as np
 import pytest
@@ -30,7 +34,7 @@ from seabreeze_param_tpu_torch.models.pipeline import TriggerPipeline
 from seabreeze_param_tpu_torch.ops.coastline import get_edges
 from seabreeze_param_tpu_torch.ops.cuda.distance_kernel import (
     min_haversine_limits, min_haversine_param_cuda, pass2_min_cuda,
-    pass2_min_limits)
+    pass2_min_limits, pass2_min_two_cuda, pass2_min_two_limits)
 from seabreeze_param_tpu_torch.ops.cuda.halo_kernel import halo_exchange_cuda
 from seabreeze_param_tpu_torch.ops.cuda.ring_kernel import (
     StackedScan, ring_limits, ring_thc_cuda_padded, ring_trigger_cuda_padded,
@@ -90,7 +94,7 @@ def test_pass2_kernel_bit_equal_to_plain(name, dev):
     sdphi2, po, sdlam2 = device_tables(grid, k, dev)
     coast = get_edges(torch.as_tensor(lsm, device=dev),
                       torch.as_tensor(ci[1], device=dev))
-    Mmin = pass1_extrema(pad_coast(coast, k), sdlam2, k)
+    Mmin, _ = pass1_extrema(pad_coast(coast, k), sdlam2, k)
     before = pass2_min_cuda.launches
     got = pass2_min_cuda(Mmin, sdphi2, po, k)
     assert pass2_min_cuda.launches == before + 1
@@ -157,6 +161,58 @@ def test_pass2_kernel_shapes_bit_equal_to_plain(shape, k, offset, rows, dev):
         got = pass2_min_cuda(Mmin, sdphi2, po, k, row_monotone=row_mono)
         assert pass2_min_cuda.launches == before + 1
         torch.testing.assert_close(got, ref, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", PASS2_SHAPES)
+@pytest.mark.parametrize("k", [0, 1, 6, 15, 93, 94, 176, 387])
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("rows", ["random", "monotone"])
+def test_pass2_two_extremum_bit_equal_to_plain(shape, k, offset, rows, dev):
+    """B2's two-extremum form against its plain version
+    (``pass2_min(Mmax=)``), bit for bit: random extrema (Mmax >= Mmin,
+    BIG / -BIG rows, blocks and cells), po in [-1, 1] (where the form
+    differs from the single one), at k = 0 to 15, at the staged build's
+    widest radius (93, ``pass2_min_two_limits``: two strips in shared
+    memory) and one past it, and at 176 and 387 on the unstaged routine;
+    ``offset`` 1 places both extrema off the 16-byte alignment.  ``rows``
+    as for the single form: the rows' flags, which this form ignores
+    (its early exit would need po >= 0), are passed and not."""
+    assert pass2_min_two_limits() == 93
+    h, w = shape
+    rng = np.random.default_rng(h * 1000 + w + k + 7)
+    m = rng.random((h + 2 * k, w)).astype(np.float32)
+    mx = np.maximum(m, rng.random(m.shape).astype(np.float32))
+    empty = rng.random(h + 2 * k) < 0.3
+    empty = empty[:, None] | (rng.random(m.shape) < 0.1)
+    empty[: (h + 2 * k) // 2, : w // 3] = True
+    m[empty], mx[empty] = 1.0e30, -1.0e30
+    buf = torch.empty(2 * m.size + 2 * offset, device=dev)
+    Mmin = buf[offset:offset + m.size].view(m.shape)
+    Mmax = buf[m.size + 2 * offset:].view(m.shape)
+    Mmin.copy_(torch.as_tensor(m))
+    Mmax.copy_(torch.as_tensor(mx))
+    t = (rng.random((h, 2 * k + 1)).astype(np.float32) if rows == "random"
+         else _v_rows(rng, h, k))
+    flags = torch.as_tensor(window_monotone(t, k).astype(np.uint8),
+                            device=dev)
+    sdphi2 = torch.as_tensor(t, device=dev)
+    po = torch.as_tensor((2 * rng.random((h, 2 * k + 1)) - 1).astype(
+        np.float32), device=dev)
+    ref = pass2_min(Mmin, sdphi2, po, k, Mmax=Mmax)
+    single = pass2_min(Mmin, sdphi2, po, k)
+    assert bool((ref <= single).all())
+    if h * w >= 256:    # a few rows may all take po >= 0 or empty windows
+        assert bool((ref < single).any())
+    for row_mono in (flags, None):
+        before = (pass2_min_two_cuda.launches, pass2_min_cuda.launches)
+        got = pass2_min_cuda(Mmin, sdphi2, po, k, Mmax=Mmax,
+                             row_monotone=row_mono)
+        assert (pass2_min_two_cuda.launches,
+                pass2_min_cuda.launches) == (before[0] + 1, before[1])
+        torch.testing.assert_close(got, ref, rtol=0, atol=0)
+    torch.testing.assert_close(pass2_min_two_cuda(Mmin, Mmax, sdphi2, po, k),
+                               ref, rtol=0, atol=0)
 
 
 @pytest.mark.cuda
@@ -250,7 +306,7 @@ def _ring_padded_both(t0_pad, cd_pad, cd, ws_new, wd_new, ws0, wd0, flags,
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", RING_SHAPES)
 @pytest.mark.parametrize("nn", [1, 10, 19, 25, 37, 51, 52, 53, 57, 58, 65, 97,
-                                109, 110, 160, 224, 225, 243, 320, "max"])
+                                109, 110, 160, 224, 225, 243, 320, 2047])
 @pytest.mark.parametrize("coast", ["none", "all", "line", "land"])
 def test_ring_stacked_two_steps_bit_equal_to_plain(shape, nn, coast, dev):
     """B1 over two steps of one scan from tt = 14 (the coast moving between
@@ -259,15 +315,20 @@ def test_ring_stacked_two_steps_bit_equal_to_plain(shape, nn, coast, dev):
     bit, with no ever-coastal tile ('none'), every tile ('all'), a band,
     or every cell running to NN ('land'); B4 and B5 on the same steps.  NN
     1 to 24 is the first build (4 hp and 3 vc elements per thread), 25 to
-    51 the second (9 and 5).  From 52 to the widest radius ('max', 2047)
-    the large build (radii in bands of 16, the elements a band reads
-    carried in registers, latch radii from an integral image of land): 97
-    is the 0.015-degree regional grid's static bound, 208 the radius
-    ``diag`` probes there, 224 the widest radius of the large build before
-    its redesign, 243 the radius ``diag`` probes on a 0.009-degree (1 km)
-    grid, 320 well past it."""
-    if nn == "max":
-        nn = ring_limits()[1]
+    51 the second (9 and 5).  From 52 on the large build (radii in bands
+    of 16, the elements a band reads carried in registers, latch radii
+    from an integral image of land): 97 is the 0.015-degree regional
+    grid's static bound, 208 the radius ``diag`` probes there, 224 the
+    widest radius of the large build before its redesign, 243 the radius
+    ``diag`` probes on a 0.009-degree (1 km) grid, 320 well past it, 2047
+    the widest with exact float32 land counts (past it:
+    test_ring_kernels_past_2047_bit_equal_to_plain)."""
+    _ring_two_steps(shape, nn, coast, dev)
+
+
+def _ring_two_steps(shape, nn, coast, dev):
+    """B1 over two steps at radius ``nn`` against ``trigger_cells``, and
+    B4 and B5 on the same steps, bit for bit."""
     params = Params()
     h, w = shape
     rng = np.random.default_rng(nn)
@@ -343,16 +404,47 @@ def test_ring_launchers_take_nn_243(dev):
 
 
 @pytest.mark.cuda
-def test_ring_launchers_refuse_past_max_nn(dev):
-    """One past the widest radius the kernels take (2047, where the
-    window's cell count stops being exact in float32): B1, B4 and B5 raise
-    ``ValueError`` naming the limit, and count no launch."""
-    max_nn = ring_limits()[1]
-    assert max_nn == 2047
+@pytest.mark.parametrize("shape", RING_SHAPES)
+@pytest.mark.parametrize("nn", [2047, 2048, 2204])
+@pytest.mark.parametrize("coast", ["none", "all", "line", "land"])
+def test_ring_kernels_past_2047_bit_equal_to_plain(shape, nn, coast, dev):
+    """B1, B4 and B5 past the radius at which the window's cell count,
+    (2 NN + 1)^2, passes 2^24 (2047), where the plain version's float32
+    land count rounds and the kernels once refused: bit-equal to plain over
+    two steps at 2047, 2048 and 2204 (the static bound of a 1 km grid with
+    maxdist = 3000 km, k = 2200), on the coast shapes of
+    test_ring_stacked_two_steps_bit_equal_to_plain, 'land' being the field
+    whose windows never hold both classes, so every cell carries the
+    rounded count to NN."""
+    _ring_two_steps(shape, nn, coast, dev)
+
+
+@pytest.mark.cuda
+def test_ring_launchers_refuse_past_the_integral_image(dev):
+    """The widest radius the kernels take is the widest whose padded field
+    the int32 integral image of land can count, (2 NN + 1)^2 <= 2^31 - 1:
+    one past it, and a field whose padded cells pass 2^31 - 1, make B1, B4
+    and B5 raise ``ValueError`` before any tensor is checked or launched
+    (tiny tensors stand in for the fields)."""
+    large_from, max_nn = ring_limits()
+    assert large_from == 52 and max_nn == 23169
+    assert (2 * max_nn + 1) ** 2 <= 2 ** 31 - 1 < (2 * max_nn + 3) ** 2
+    params = Params()
+    z = torch.zeros((1, 1), device=dev)
     before = _ring_counts()
-    for launch in _ring_launch_all(dev, 8, 8, max_nn + 1, Params()):
-        with pytest.raises(ValueError, match=f"NN <= {max_nn}"):
-            launch()
+    for nn, h, w, match in ((max_nn + 1, 1, 1, f"NN <= {max_nn}"),
+                            (2048, 40000, 50000, "integral image")):
+        cd = z.expand(h, w)
+        scan = StackedScan(h, w, params, dev)
+        for launch in (
+                lambda: ring_trigger_cuda_stacked(
+                    z, z, cd, z, z, z, z, False, False, params, nn, 0, z, z,
+                    z, scan.ever),
+                lambda: ring_trigger_cuda_padded(z, z, cd, z, z, z, z, False,
+                                                 False, params, nn),
+                lambda: ring_thc_cuda_padded(z, z, cd, nn)):
+            with pytest.raises(ValueError, match=match):
+                launch()
     assert _ring_counts() == before
 
 
@@ -418,6 +510,40 @@ def test_stacked_scan_global025_matches_plain(dev):
         runs[uk] = pipe.run(state, theta, u, v, lsm, z, std, pres, ci_t=ci)
         assert ring_trigger_cuda_stacked.launches - before == (
             3 if uk is None else 0)
+    (ks, ko), (ps, po) = runs[None], runs[False]
+    for key in po:
+        torch.testing.assert_close(ko[key], po[key], rtol=0, atol=0)
+    for key in ("windspeed", "winddir"):
+        torch.testing.assert_close(getattr(ks, key), getattr(ps, key),
+                                   rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_nearest_hybrid_scan_global025_bit_equal_to_plain(dev):
+    """``TriggerPipeline(distance_lon_form='nearest').run`` at 0.25 deg,
+    three steps from tt = 14 with ice appearing at step 1: ``'auto'`` takes
+    the hybrid on the card (torch pass 1 in the nearest form, then B2, one
+    launch a step, no B3), bit-equal to the plain path (the same form)
+    step by step, with the final wind state."""
+    nlat, nlon = 721, 1440
+    grid = Grid.regular(nlat, nlon)
+    lsm, z, std, pres, theta, u, v, ci = make_world(nlat, nlon, 4, 3, seed=3)
+    ci[1:, :70, :] = 0.8
+    runs = {}
+    for uk in (None, False):
+        pipe = TriggerPipeline(grid, device=dev, use_kernels=uk,
+                               distance_lon_form="nearest")
+        state = TriggerState(
+            tt=14, thc=torch.zeros((nlat, nlon), device=dev),
+            windspeed=torch.full((nlat, nlon), 5.0, device=dev),
+            winddir=torch.full((nlat, nlon), 90.0, device=dev))
+        before = (pass2_min_cuda.launches, min_haversine_param_cuda.launches,
+                  ring_trigger_cuda_stacked.launches)
+        runs[uk] = pipe.run(state, theta, u, v, lsm, z, std, pres, ci_t=ci)
+        n = 3 if uk is None else 0
+        assert (pass2_min_cuda.launches - before[0],
+                min_haversine_param_cuda.launches - before[1],
+                ring_trigger_cuda_stacked.launches - before[2]) == (n, 0, n)
     (ks, ko), (ps, po) = runs[None], runs[False]
     for key in po:
         torch.testing.assert_close(ko[key], po[key], rtol=0, atol=0)
@@ -507,7 +633,8 @@ def test_new_launchers_reject_oversized_shared_memory(dev):
     bit-equal to plain (it once raised ``ValueError`` there); B4/B5 at NN
     = 2048, past theirs: each wrapper raises ``ValueError`` naming the
     limit before launching and counts no launch; the next good launch is
-    not blamed."""
+    not blamed.  (Since the ring kernels take NN past 2047, B4/B5's limit
+    is ``ring_limits``' 23169, the int32 integral image's.)"""
     def zeros(*shape):
         return torch.zeros(shape, device=dev)
 
@@ -567,7 +694,7 @@ def test_min_haversine_kernel_bit_equal_to_plain(name, radius, dev):
         assert min_haversine_param_cuda.launches == before + 1
         torch.testing.assert_close(got, ref, rtol=0, atol=0)
     torch.testing.assert_close(
-        got, pass2_min_cuda(pass1_extrema(cpad, tabs[2], k), tabs[0],
+        got, pass2_min_cuda(pass1_extrema(cpad, tabs[2], k)[0], tabs[0],
                             tabs[1], k), rtol=0, atol=0)
 
 
@@ -715,7 +842,7 @@ def test_wide_radius_fields_bit_equal_to_plain(kind, k, dev):
     if kind == "lane_out":
         reach = (ref < 0.5e30).any(dim=0).cpu().numpy()
         assert reach.any() and not reach.all()
-    mmin = pass1_extrema(cpad, tabs[2], k)
+    mmin, _ = pass1_extrema(cpad, tabs[2], k)
     for rows in (tabs.row_monotone, None):
         before = (min_haversine_param_cuda.launches, pass2_min_cuda.launches)
         got3 = min_haversine_param_cuda(cpad, *tabs, k,

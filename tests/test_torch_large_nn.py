@@ -168,3 +168,29 @@ def test_large_nn_matches_jax(name, path):
     np.testing.assert_allclose(_np(tstate.thc), _np(jstate.thc), rtol=1e-6)
     _final_wind(tstate.windspeed, tstate.winddir, jstate.windspeed,
                 jstate.winddir, _fresh_wind_agrees(u, v, pres))
+
+
+def test_ring_thc_past_2047_matches_jax():
+    """The ring search at NN = 2048, one past the widest radius whose
+    window's cell count, (2 NN + 1)^2, is below 2^24: an 8 x 16 field of
+    land cells all within maxdist (cdist >= 0 everywhere), so no window
+    ever holds both classes and every cell latches the NN window, whose
+    land count the float32 running sum rounds.  The port's plain version
+    (what kernels B1, B4 and B5 are held to, bit for bit, on the card)
+    against JAX's ``ring_thc`` run op by op (``jax.disable_jit``: XLA
+    would take minutes to compile the 2048-radius loop), bit for bit."""
+    from seabreeze_param_tpu.ops import ring_search as jring
+    from seabreeze_param_tpu_torch.ops import ring_search as tring
+    nn = 2048
+    rng = np.random.default_rng(2048)
+    t0 = (280.0 + 10.0 * rng.random((8, 16))).astype(np.float32)
+    cd = (50.0 + 100.0 * rng.random((8, 16))).astype(np.float32)
+    got, found = tring.ring_thc(torch.as_tensor(t0), torch.as_tensor(cd), nn,
+                                maxdist=180.0)
+    with jax.disable_jit():
+        ref, jfound = jring.ring_thc(t0, cd, nn, maxdist=180.0)
+    assert not found.any() and not np.asarray(jfound).any()
+    np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+    # the window's exact cell count is no float32: the count rounds
+    cells = (2 * nn + 1) ** 2
+    assert cells > 2 ** 24 and float(np.float32(cells)) != cells

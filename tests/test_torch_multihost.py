@@ -176,6 +176,38 @@ def test_distributed_runner_matches_single_process_and_jax(tmp_path):
     assert all(int(b["tt"][0]) == int(ref_state.tt) for b in blocks)
 
 
+#: The nearest lon form's world: :func:`world`'s fields on a global lon
+#: axis (64 columns, 5.625 deg), and the maxdist that takes its distance
+#: radius to k = 3.
+NEAREST_LON = np.linspace(0.0, 360.0, 64, endpoint=False).astype(np.float32)
+NEAREST_MAXDIST = 2000.0
+
+
+def test_distributed_runner_nearest_lon_form(tmp_path):
+    """``DistributedRunner`` with ``distance_lon_form='nearest'`` (each
+    shard's ``half_dlam`` from the global grid and k, inherited from
+    ``ShardedPipeline``) on a 2 x 2 global mesh: bit-equal to one
+    process's ``ShardedPipeline`` on the same mesh (checked in the ranks),
+    and the ranks' blocks together against JAX ``TriggerPipeline(
+    distance_lon_form='nearest').run``."""
+    from seabreeze_param_tpu.core.grid import Grid
+    from seabreeze_param_tpu.core.params import Params
+    from seabreeze_param_tpu.core.state import TriggerState
+    from seabreeze_param_tpu.models.pipeline import TriggerPipeline
+    _spawn("nearest", tmp_path)
+    blocks = [np.load(tmp_path / f"nearest.{r}.npz") for r in range(2)]
+    got = {k: np.concatenate([b[k] for b in blocks], axis=-2)
+           for k in blocks[0].files if k != "tt"}
+    _, lat, (lsm, z, std, p, theta, u, v, ci) = world()
+    ref_state, ref = TriggerPipeline(
+        Grid(lon=NEAREST_LON, lat=lat), Params(maxdist=NEAREST_MAXDIST),
+        distance_lon_form="nearest").run(
+        TriggerState.zeros(lsm.shape), theta, u, v, lsm, z, std, p, ci_t=ci)
+    _outputs_close({k: got[k] for k in ref}, ref, "nearest runner vs JAX")
+    np.testing.assert_allclose(got["final_thc"], np.asarray(ref_state.thc),
+                               rtol=1e-6, atol=1e-5)
+
+
 def test_diag_two_ranks_returns_global_fields(tmp_path):
     """``diag`` in two ranks: both return the same global fields, bit-equal
     to one process's ``diag(mesh=(2, 1))`` (checked in the ranks), and
@@ -358,6 +390,47 @@ def _rank_runner(out_dir):
                      **{k: o.numpy() for k, o in outs.items()})
 
 
+def _rank_nearest(out_dir):
+    import torch
+    from seabreeze_param_tpu_torch.core.grid import Grid
+    from seabreeze_param_tpu_torch.core.params import Params
+    from seabreeze_param_tpu_torch.core.state import TriggerState
+    from seabreeze_param_tpu_torch.models.pipeline import TriggerPipeline
+    from seabreeze_param_tpu_torch.parallel import distributed as dist
+    from seabreeze_param_tpu_torch.parallel.mesh import make_mesh
+    from seabreeze_param_tpu_torch.parallel.sharded import ShardedPipeline
+
+    _, lat, (lsm, z, std, p, theta, u, v, ci) = world()
+    pipe = TriggerPipeline(Grid(lon=NEAREST_LON, lat=lat),
+                           Params(maxdist=NEAREST_MAXDIST), device="cpu",
+                           distance_lon_form="nearest")
+    assert pipe.k == 3
+    zeros = TriggerState.zeros(lsm.shape, "cpu")
+    sp = ShardedPipeline(pipe, dist.make_multihost_mesh((2, 2),
+                                                        device="cpu"))
+    assert sp.half_dlam is not None
+    runner = dist.DistributedRunner(sp)
+    lo, hi = runner.row_lo, runner.row_hi
+
+    def slab(a):
+        return np.asarray(a)[..., lo:hi, :]
+
+    final, outs = runner.run(
+        TriggerState(zeros.tt, *(slab(getattr(zeros, f)) for f in
+                                 ("thc", "windspeed", "winddir"))),
+        slab(theta), slab(u), slab(v), slab(lsm), slab(z), slab(std), p,
+        ci_t=slab(ci))
+    one = ShardedPipeline(pipe, make_mesh((2, 2), "cpu"))
+    rstate, ref = one.run(zeros, theta, u, v, lsm, z, std, p, ci_t=ci)
+    for key in ref:
+        assert torch.equal(outs[key], ref[key][:, lo:hi]), key
+    for f in ("thc", "windspeed", "winddir"):
+        assert torch.equal(getattr(final, f), getattr(rstate, f)[lo:hi]), f
+    np.savez(os.path.join(out_dir, f"nearest.{dist.rank()}.npz"),
+             final_thc=final.thc.numpy(), tt=np.array([final.tt]),
+             **{k: o.numpy() for k, o in outs.items()})
+
+
 def _rank_diag(out_dir):
     from seabreeze_param_tpu_torch.api import diag
     from seabreeze_param_tpu_torch.parallel import distributed as dist
@@ -402,6 +475,8 @@ def _rank_main(case, *args):
         _rank_units()
     elif case == "runner":
         _rank_runner(*args)
+    elif case == "nearest":
+        _rank_nearest(*args)
     elif case == "diag":
         got = _rank_diag(*args)
         for i in range(1, 5):

@@ -142,7 +142,8 @@ def test_distance_tables_and_pass1_match_jax(case, request):
     ref, _ = jdist.pass1_extrema(jdist.pad_coast(coast, k), tabs[2], k)
     cpad = tdist.pad_coast(T(np.asarray(coast)), k)
     np.testing.assert_array_equal(_np(cpad), _np(jdist.pad_coast(coast, k)))
-    got = tdist.pass1_extrema(cpad, T(tabs[2]), k)
+    got, none = tdist.pass1_extrema(cpad, T(tabs[2]), k)
+    assert none is None
     np.testing.assert_array_equal(_np(got), _np(ref))
 
 

@@ -64,7 +64,7 @@ def _wide_inputs():
     tabs = tdist.device_tables(grid, k, "cpu")
     coast = tco.get_edges(torch.as_tensor(lsm), torch.as_tensor(ci[0]))
     assert 0 < int(coast.sum()) < coast.numel()
-    mmin = tdist.pass1_extrema(tdist.pad_coast(coast, k), tabs[2], k)
+    mmin, _ = tdist.pass1_extrema(tdist.pad_coast(coast, k), tabs[2], k)
     return mmin, tabs, k
 
 

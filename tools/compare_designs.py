@@ -94,7 +94,8 @@ one, which sets where the large build starts), on
 ``chip_smoke.fine_world`` at the coupled step's NN = 97 and ``diag``'s NN
 = 208 (B4 at 97), and on
 ``chip_smoke.km_world`` at ``diag``'s NN = 243 (no build of the parent
-takes it); B6 on random 2 x 4 shards of both grids at the width of theta's
+takes it) and on the 0.4 km world (``wide387``) at its NN = 391; B6 on
+random 2 x 4 shards of both grids at the width of theta's
 exchange (NN), beside two yardsticks in the same passes: ``take``, the
 smoke's library call (``torch.take`` through an index map), and ``copy``, a
 ``Tensor.copy_`` of as many bytes as the exchange writes.  Last, the host
@@ -358,8 +359,8 @@ def b2_inputs(name):
     tabs = device_tables(grid, k, dev)
     coast = get_edges(torch.as_tensor(lsm, device=dev),
                       torch.as_tensor(ci, device=dev))
-    return (pass1_extrema(pad_coast(coast, k), tabs[2], k), tabs[0], tabs[1],
-            tabs.row_monotone, k)
+    mmin, _ = pass1_extrema(pad_coast(coast, k), tabs[2], k)
+    return mmin, tabs[0], tabs[1], tabs.row_monotone, k
 
 
 def b2_case(name):
@@ -448,7 +449,7 @@ def b3_case(name):
         return bool(torch.equal(out, ref))
 
     yard = None if name in REGIONAL else {
-        "hybrid": lambda: pass2_min_cuda(pass1_extrema(cpad, tabs[2], k),
+        "hybrid": lambda: pass2_min_cuda(pass1_extrema(cpad, tabs[2], k)[0],
                                          tabs[0], tabs[1], k)}
     return check, make_call, yard
 
@@ -457,14 +458,16 @@ def ring_inputs(name, nn=None):
     """One step of a world (tt = 15, a wind refresh) on the card: the ring
     kernels' inputs padded at ``nn`` (default: the pipeline's NN) and the
     state.  ``name``: one of ``bench.GRIDS``, ``fine`` for
-    ``chip_smoke.fine_world`` or ``km`` for ``chip_smoke.km_world``."""
+    ``chip_smoke.fine_world``, ``km`` for ``chip_smoke.km_world`` or
+    ``wide387`` for the 0.4 km world of ``chip_smoke.wide_world``."""
     import torch
     from bench import GRIDS, make_world
     from seabreeze_param_tpu_torch.core.params import Params
     from seabreeze_param_tpu_torch.models.pipeline import TriggerPipeline
     from seabreeze_param_tpu_torch.ops.trigger import cadence, prepare_step
-    if name in ("fine", "km"):
-        grid, world = cs.fine_world() if name == "fine" else cs.km_world()
+    if name in ("fine", "km", "wide387"):
+        grid, world = (cs.fine_world() if name == "fine" else cs.km_world()
+                       if name == "km" else cs.wide_world(REGIONAL[name][0]))
         nlat, nlon = grid.shape
     else:
         grid, _, _ = cs.world_grid(name)
@@ -476,9 +479,10 @@ def ring_inputs(name, nn=None):
     params = Params()
     nn = pipe.nn_max if nn is None else nn
     D = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
-    cd = pipe.distance_field(D(lsm), D(ci[2]))
+    t = min(2, len(theta) - 1)              # the 0.4 km world has 2 steps
+    cd = pipe.distance_field(D(lsm), D(ci[t]))
     _, ws_new, wd_new, t0_pad, cd_pad = prepare_step(
-        D(theta[2]), D(u[2]), D(v[2]), cd, D(z), D(std), D(pres), params, nn)
+        D(theta[t]), D(u[t]), D(v[t]), cd, D(z), D(std), D(pres), params, nn)
     ws0 = torch.full((nlat, nlon), 5.0, device=dev)
     wd0 = torch.full((nlat, nlon), 90.0, device=dev)
     return dict(nlat=nlat, nlon=nlon, nn=nn, params=params, cd=cd,
@@ -842,6 +846,9 @@ def main():
               mine + large)]
     plan += [("B1", "B1", "km@243", lambda: b1_case("km", 243),
               ["this"] + large)]
+    # the 0.4 km world at diag's NN (the parent's large build takes it)
+    plan += [("B1", "B1", "wide387@391", lambda: b1_case("wide387", 391),
+              mine)]
     # the wide-radius designs run only where their routine is taken
     wide = ("l1", "ring", *PRUNED_OPTIONS)
     plan = [(kern, group, size, case, names if names is not None else
