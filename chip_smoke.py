@@ -26,7 +26,11 @@ version at the shard shapes of 0.25 and 0.1 deg, ``ShardedPipeline.run``
 for 16 steps of the main world, overlapped (B6 + B3 + B1) against the
 single-device run and its own plain path, basic (B6 + B3 + B4) against
 overlapped, ``diag(mesh='2x4')`` against ``diag()``, and the dummy
-model's ``--sharded``.  Last the batch driver (``cli/run.py``) over a
+model's ``--sharded``.  Then one mesh spread over several cards
+(:func:`phase_multicard`): 2 x 2 shards of global 0.1 deg over up to four
+cards, or over four groups of the one card, bit-equal to the one-group
+mesh, with B6 timed over the groups; it says whether the peer path across
+cards was shown.  Last the batch driver (``cli/run.py``) over a
 daily netCDF series of the main world written into a temporary directory
 (3 files of 4 steps): kernel path against plain, bit-equal to the same
 ``diag`` calls on the in-memory arrays, ``--mesh=2x4`` against the single
@@ -1578,6 +1582,256 @@ def phase_dummy_sharded(out):
     out.update(launches=launches, ms_per_step=kms)
 
 
+#: The multi-card phase: global 0.1 deg, MC_STEPS steps of a world whose
+#: ice edge moves at step 4, on a MC_MESH mesh over min(count, 4) cards,
+#: or, on one card, over MC_GROUPS groups of it.
+MC_MESH, MC_STEPS, MC_GROUPS = (2, 2), 8, 4
+
+
+@functools.cache
+def multicard_world():
+    """The multi-card phase's world at global 0.1 deg: ``(grid, (lsm, z,
+    std, pres, theta, u, v, ci))``, MC_STEPS steps on 4 levels."""
+    from bench import make_world
+    grid, _, _ = world_grid("global010")
+    lsm, z, std, pres, theta, u, v, ci = make_world(grid.nlat, grid.nlon, 4,
+                                                    MC_STEPS)
+    for t in range(MC_STEPS):
+        ci[t] = 0.0
+        ci[t, : grid.nlat // 12 + t // 4, :] = 0.8
+    return grid, (lsm, z, std, pres, theta, u, v, ci)
+
+
+def card_topology():
+    """``nvidia-smi -L`` and ``nvidia-smi topo -m`` (one line each), or what
+    they said instead."""
+    lines = []
+    for args in (["-L"], ["topo", "-m"]):
+        r = subprocess.run(["nvidia-smi", *args], capture_output=True,
+                           text=True)
+        text = (r.stdout or r.stderr).strip().replace("\n", " | ")
+        lines.append(f"nvidia-smi {' '.join(args)}: {text or 'no output'}")
+    return lines
+
+
+def b6_peer_bytes(mesh, h, w, hy, hx, c):
+    """Per card, the bytes an exchange of (c, h, w) shards reads from shards
+    on other cards (the halo strips and corners it takes from them) and
+    the bytes it moves on the card (every source read once, every padded
+    block written once)."""
+    peer, local = {}, {}
+    for s in range(mesh.size):
+        iy, ix = mesh.coords(s)
+        dev = mesh.device_of(s)
+        remote = 0
+        for dy, rows in ((-1, hy), (0, h), (1, hy)):
+            if not 0 <= iy + dy < mesh.py:
+                continue
+            for dx, cols in ((-1, hx), (0, w), (1, hx)):
+                if (dy, dx) == (0, 0):
+                    continue
+                n = (iy + dy) * mesh.px + (ix + dx) % mesh.px
+                if mesh.device_of(n) != dev:
+                    remote += rows * cols
+        out = (h + 2 * hy) * (w + 2 * hx)
+        peer[dev] = peer.get(dev, 0) + 4 * c * remote
+        local[dev] = local.get(dev, 0) + 4 * c * (h * w + out)
+    return peer, local
+
+
+#: NVLink 4 between two H100s, each way (NVIDIA's data sheet).
+PEAK_NVLINK = 450e9
+
+
+def phase_multicard(out):
+    """One decomposed-run mesh spread over several cards: global 0.1 deg,
+    2 x 2 shards, MC_STEPS steps with moving ice, ``ShardedPipeline.run``
+    over min(count, 4) cards, one shard group each, or on one card over
+    MC_GROUPS groups of it (each group on its own stream, B6 launched once
+    per group, events between the groups); overlapped (B6 + B3 + B1) and
+    basic (B6 + B3 + B4) bit-equal to the one-group 2 x 2 mesh on the first
+    card and the overlapped run within the sharded tolerance of the single
+    device; ``diag(mesh='2x2')`` over the default devices and over the
+    phase's against ``diag()``; B6 over the groups timed at theta's
+    exchange (NN wide) beside one group's launch alone and its bound."""
+    import torch
+    from seabreeze_param_tpu_torch.api import diag
+    from seabreeze_param_tpu_torch.core.state import TriggerState
+    from seabreeze_param_tpu_torch.models.pipeline import TriggerPipeline
+    from seabreeze_param_tpu_torch.ops.cuda import halo_kernel
+    from seabreeze_param_tpu_torch.parallel.halo import halo_exchange_plain
+    from seabreeze_param_tpu_torch.parallel.mesh import make_mesh, split
+    from seabreeze_param_tpu_torch.parallel.sharded import ShardedPipeline
+
+    count = torch.cuda.device_count()
+    cards = min(count, 4)
+    devs = ([torch.device("cuda", i) for i in range(cards)] if cards > 1
+            else [torch.device("cuda", 0)] * MC_GROUPS)
+    dev0 = devs[0]
+    mesh = make_mesh(MC_MESH, devs)
+    one = make_mesh(MC_MESH, dev0)
+    peer_shown = len(set(mesh.devices)) > 1
+    grid, world = multicard_world()
+    lsm, z, std, pres, theta, u, v, ci = world
+    T, (nlat, nlon) = MC_STEPS, grid.shape
+    d = [torch.as_tensor(a, device=dev0) for a in
+         (theta, u, v, lsm, z, std, pres, ci)]
+    single = TriggerPipeline(grid, device=dev0)
+    nn, k = single.nn_max, single.k
+    runners = {"groups": ShardedPipeline(single, mesh),
+               "one": ShardedPipeline(single, one),
+               "groups_basic": ShardedPipeline(single, mesh, overlap=False),
+               "one_basic": ShardedPipeline(single, one, overlap=False),
+               "single": single}
+    if not (runners["groups"].overlap and runners["one"].overlap):
+        raise AssertionError("multicard: the overlapped structure was not "
+                             "chosen at global010 on 2x2")
+
+    def run(label):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st, o = runners[label].run(TriggerState.zeros((nlat, nlon), dev0),
+                                   *d[:7], ci_t=d[7])
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / T * 1e3
+        return ({key: x.cpu() for key, x in o.items()}, final_fields(st), ms)
+
+    exchanges = {"groups": 3 + 2 * T, "groups_basic": 3 * T}
+    want = {"groups": {"halo_exchange": mesh.groups * exchanges["groups"],
+                       "ring_trigger_stacked": mesh.size * T,
+                       dist_kernel(): mesh.size * T},
+            "groups_basic": {
+                "halo_exchange": mesh.groups * exchanges["groups_basic"],
+                "ring_trigger_padded": mesh.size * T,
+                dist_kernel(): mesh.size * T}}
+    res, launches = {}, {}
+    for label in ("groups", "one", "single", "groups_basic", "one_basic"):
+        first = run(label) if label in ("groups", "one", "single") else None
+        zero_launches()
+        res[label] = run(label)
+        launches[label] = {n: c for n, c in read_launches().items() if c}
+        if label in want and launches[label] != want[label]:
+            raise AssertionError(f"multicard {label}: launches "
+                                 f"{launches[label]}, want {want[label]}")
+        if first is not None:
+            for a, b in zip(first[:2], res[label][:2]):
+                for key in a:
+                    if not torch.equal(a[key], b[key]):
+                        raise AssertionError(f"multicard {label}: two runs "
+                                             f"differ in {key}")
+    for grouped, ref in (("groups", "one"), ("groups_basic", "one_basic"),
+                         ("groups_basic", "groups")):
+        for a, b in zip(res[grouped][:2], res[ref][:2]):
+            for key in a:
+                bit_equal(a[key], b[key], f"multicard {grouped} vs {ref} "
+                                          f"{key}")
+    gr, sg = res["groups"], res["single"]
+    off = outputs_sharded_close({key: x.numpy() for key, x in gr[0].items()},
+                                {key: x.numpy() for key, x in sg[0].items()},
+                                "multicard groups vs single device")
+    np.testing.assert_allclose(gr[1]["thc"], sg[1]["thc"], rtol=1e-6,
+                               atol=1e-5)
+    np.testing.assert_allclose(gr[1]["windspeed"], sg[1]["windspeed"],
+                               rtol=1e-6, atol=1e-5)
+    np.testing.assert_allclose(gr[1]["winddir"], sg[1]["winddir"], rtol=1e-5,
+                               atol=1e-3)
+    sb = gr[0]["sb_con"]
+    if sb.shape != (T, nlat, nlon) or not torch.isfinite(sb).all():
+        raise AssertionError("multicard: sb_con shape or finiteness")
+
+    # diag over the default devices and over the phase's, against diag()
+    args = (1, lsm, z, std, grid.lon, grid.lat, pres, u, v, theta, ci)
+    diags = {}
+    for label, kw in (("default", dict(mesh="2x2")),
+                      ("devices", dict(mesh="2x2", device=devs)),
+                      ("single", {})):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        diags[label] = (diag(*args, full_output=True, **kw),
+                        (time.perf_counter() - t0) / T * 1e3)
+    for label in ("default", "devices"):
+        r = diags[label][0]
+        if r[0] != diags["single"][0][0] or r[0] != 1 + T:
+            raise AssertionError(f"multicard diag {label}: tt differs")
+        outputs_sharded_close(r[5], diags["single"][0][5],
+                              f"multicard diag(mesh='2x2') {label} vs diag()")
+    if count == 1:    # the default devices: the one card, one group
+        for a, b in zip(diags["default"][0][1:5], diags["devices"][0][1:5]):
+            if not np.array_equal(a, b):
+                raise AssertionError("multicard diag: groups vs one group")
+
+    # B6 over the groups at theta's exchange, NN wide, one channel
+    h, w = -(-nlat // mesh.py), nlon // mesh.px
+    gen = torch.Generator(device=dev0).manual_seed(6)
+    field = torch.randn((MC_MESH[0] * h, MC_MESH[1] * w), generator=gen,
+                        device=dev0)
+    local = split(field, mesh)
+    kw = dict(lat_fill="clamp", exact_lon=False)
+
+    def kernel():
+        return halo_kernel.halo_exchange_cuda(local, mesh, nn, nn, **kw)
+
+    def plain():
+        return halo_exchange_plain(local, mesh, nn, nn, **kw)
+
+    got, want_b6 = kernel(), plain()
+    for s, (g, r) in enumerate(zip(got, want_b6)):
+        bit_equal(g, r, f"multicard B6 shard {s}")
+    src = (halo_kernel.ctypes.c_void_p * mesh.size)(
+        *(x.data_ptr() for x in local))
+
+    def group0():
+        with torch.cuda.device(mesh.devices[0]):
+            return halo_kernel._launch(src, mesh, (h, w), (nn, nn, 0, 0),
+                                       (None, None), mesh.group_shards(0))
+
+    peer, loc = b6_peer_bytes(mesh, h, w, nn, nn, 1)
+    if peer_shown:
+        bound_ms = max(peer[c] / PEAK_NVLINK + loc[c] / PEAK_BYTES
+                       for c in peer) * 1e3
+    else:
+        bound_ms = sum(loc.values()) / PEAK_BYTES * 1e3
+    library = (None if peer_shown else halo_take(local, mesh, nn, kw))
+    t = timing(kernel, plain, sum(loc.values()), 0, library=library,
+               library_note="torch.take of the stacked shards (one card "
+                            "only)")
+    t.update(bound_ms=bound_ms, share_of_bound=bound_ms / t["device_ms"],
+             bound_by="bytes", group_device_ms=device_ms(group0),
+             groups=mesh.groups, cards=len(set(mesh.devices)),
+             peer_path=peer_shown, max_abs_err=0.0,
+             peer_bytes=sum(peer.values()))
+    smi = nvidia_smi()
+    per_step = want["groups"]["halo_exchange"] / T
+    for line in card_topology():
+        log(f"# multicard {line}")
+    log(f"# multicard global010 on {MC_MESH[0]}x{MC_MESH[1]} (T={T}, k={k}, "
+        f"NN={nn}, moving ice) [{smi}]: {count} card(s) visible, "
+        f"{t['cards']} card(s) in the mesh, {mesh.groups} groups; peer path "
+        f"across cards {'shown' if peer_shown else 'NOT shown (one card)'}; "
+        f"ShardedPipeline.run with inputs resident, ms/step: groups "
+        f"{gr[2]:.3f} (basic {res['groups_basic'][2]:.3f}), one group "
+        f"{res['one'][2]:.3f} (basic {res['one_basic'][2]:.3f}), single "
+        f"device {sg[2]:.3f}; launches {launches['groups']} (overlapped), "
+        f"{launches['groups_basic']} (basic); B6 launches per step "
+        f"{per_step:g} ({mesh.groups} groups x 2 exchanges, + "
+        f"{3 * mesh.groups} a run); groups bit-equal to one group "
+        f"(overlapped, basic, each run twice), basic bit-equal to "
+        f"overlapped; matches the single device (largest fraction off "
+        f"{off:.3g}); diag(mesh='2x2') default devices / the phase's / "
+        f"diag() {diags['default'][1]:.3f} / {diags['devices'][1]:.3f} / "
+        f"{diags['single'][1]:.3f} ms/step (first calls, host arrays), "
+        f"matching diag()")
+    log(f"# multicard B6 at global010 NN={nn} ({h}x{w} shards, "
+        f"{mesh.groups} groups) [{smi}]: bit-equal to plain; whole exchange "
+        f"{fmt_timing(t)}; one group's launch alone "
+        f"{t['group_device_ms'] * 1e3:.1f} us; peer bytes "
+        f"{t['peer_bytes']}")
+    out.update(launches=launches, groups=mesh.groups, cards=t["cards"],
+               count=count, peer_path=peer_shown,
+               ms_per_step={x: res[x][2] for x in res}, b6=t,
+               diag_ms_per_step={x: diags[x][1] for x in diags})
+
+
 DRIVER_CONF = """datadir = {root}/data
 landfracfile = {root}/data/static_slm.nc
 topofile = {root}/data/static_topo.nc
@@ -2678,7 +2932,7 @@ def main():
     coupling, fused, dummy = {}, {}, {}
     b6, sharded, diag_mesh, dummy_sharded, driver = {}, {}, {}, {}, {}
     fine, km, wide, multiprocess = {}, {}, {}, {}
-    nearest, two, past = {}, {}, {}
+    nearest, two, past, multicard = {}, {}, {}, {}
     phase_build()
     for name in ("global025", "global010"):
         phase_pass2(name, b2)
@@ -2699,6 +2953,7 @@ def main():
     phase_sharded(sharded)
     phase_diag_mesh(diag_mesh)
     phase_dummy_sharded(dummy_sharded)
+    phase_multicard(multicard)
     phase_driver(driver)
     phase_multiprocess(multiprocess)
     phase_kernels_a_call(wide)
@@ -2712,7 +2967,8 @@ def main():
     # inputs, and the size's radii; derived figures (shares, B1's coastal
     # fraction, modelled taps) stay in the log lines above
     keys = ("max_abs_err", "device_ms", "call_ms", "plain_ms", "bound_ms",
-            "bound_by", "library_ms", "library", "nn", "k", "hybrid_ms")
+            "bound_by", "library_ms", "library", "nn", "k", "hybrid_ms",
+            "groups", "cards", "peer_path", "group_device_ms")
     kernels = []
 
     def dist_row(name, impl):
@@ -2740,7 +2996,8 @@ def main():
             ("ring_thc", "ring_trigger.cu", "ring_kernel.py:194",
              per_kernel("ring_thc"), coupling["b5_launches"],
              "standalone op on the coupled steps"),
-            ("halo_exchange", "halo_exchange.cu", "halo_kernel.py:183", b6,
+            ("halo_exchange", "halo_exchange.cu", "halo_kernel.py:183",
+             {**b6, "multicard": multicard["b6"]},
              sharded["launches"]["overlap"]["halo_exchange"],
              f"sharded: ShardedPipeline.run on {SHARD_MESH}, overlapped"),
             ("ring_trigger_stacked_large", "ring_trigger.cu",

@@ -7,13 +7,17 @@
 Same positional order, keyword names and defaults, returns, state threading
 and warnings as the reference (``python_wrapper/seabreezediag/
 __init__.py:91-263``), on top of :class:`models.pipeline.TriggerPipeline`.
-Extensions: ``device`` (the card by default), ``use_kernels``,
-``full_output`` and ``mesh`` — the decomposed run
-(:class:`parallel.sharded.ShardedPipeline`) with every shard on ``device``:
-``None`` (default, no decomposition), ``'auto'``, ``'PYxPX'``, a
-``(py, px)`` tuple or a :class:`parallel.mesh.ShardMesh`.  Returns host
-float32 arrays; ``thc`` is, as in the reference, the sea-level temperature
-t0.
+Extensions: ``device``, ``use_kernels``, ``full_output`` and ``mesh`` —
+the decomposed run (:class:`parallel.sharded.ShardedPipeline`): ``None``
+(default, no decomposition, one device), ``'auto'`` (a near-square mesh,
+one shard per device, as the JAX package's "2-D mesh over all local
+devices"), ``'PYxPX'``, a ``(py, px)`` tuple or a
+:class:`parallel.mesh.ShardMesh`.  ``device`` — None (default): the
+current card, and for a mesh every visible card; one device: the run and
+every shard there; a list: a mesh over those devices, one group of shards
+per entry (``parallel.mesh.make_mesh``), the single-device parts of the
+call on the first.  Returns host float32 arrays; ``thc`` is, as in the
+reference, the sea-level temperature t0.
 
 In a multi-process launch (a process group of more than one rank,
 ``parallel.distributed.initialize``) every call runs the decomposed run
@@ -41,7 +45,7 @@ _PARAM_KEYS = ("target_plev", "thresh_wind", "thresh_winddir",
                "maxdist")
 
 #: Pipelines keyed by (grid, params, device, kernels, ring bound, and for a
-#: decomposed run the mesh shape and device), and the
+#: decomposed run the mesh shape and devices), and the
 #: sticky ring bound per (grid, params, device, kernels); least recently used
 #: entries go first.  A pipeline caches its device distance tables, so a
 #: batch run over many files on one grid builds them once.
@@ -167,7 +171,7 @@ def diag(tt, lsm, z, std, lon, lat, pres, *args, **kwargs):
     use_kernels = kwargs.pop("use_kernels", None)
     full_output = kwargs.pop("full_output", False)
     mesh = kwargs.pop("mesh", None)
-    device = kwargs.pop("device", "cuda")
+    device = kwargs.pop("device", None)
     if meta is None:
         u, v, t, ci = args
     else:
@@ -177,13 +181,17 @@ def diag(tt, lsm, z, std, lon, lat, pres, *args, **kwargs):
     params = Params(**{k: kwargs.pop(k) for k in _PARAM_KEYS if k in kwargs})
     if kwargs:
         raise TypeError(f"unknown keyword arguments: {sorted(kwargs)}")
-    device = torch.device(device)
+    # the mesh's devices: every card (None), a list, or the one device
+    mesh_devices = device
+    if isinstance(device, (list, tuple)):
+        device = device[0]
+    device = torch.device("cuda" if device is None else device)
     from .parallel.distributed import world_size
     multihost = world_size() > 1
     if mesh is not None and not multihost:
         from .parallel.mesh import ShardMesh, make_mesh
         if not isinstance(mesh, ShardMesh):
-            mesh = make_mesh(mesh, device=device)
+            mesh = make_mesh(mesh, device=mesh_devices)
 
     tt = max(1, int(tt))
     shape = np.asarray(lsm).shape
@@ -273,8 +281,7 @@ def diag(tt, lsm, z, std, lon, lat, pres, *args, **kwargs):
             from .parallel.sharded import ShardedPipeline
             run_pipe = pipe
             pipe = _cached_pipeline(
-                base_key + ("sharded", ring_nn, mesh.shape,
-                            str(mesh.device)),
+                base_key + ("sharded", ring_nn, mesh.shape, mesh.devices),
                 lambda: ShardedPipeline(run_pipe, mesh))
         final, outs = pipe.run(state, t, u, v, lsm_d, z, std, pres, ci_t=ci)
     _, thc_o, ws_o, wd_o = final.to_numpy()

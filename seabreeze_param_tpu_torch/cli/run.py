@@ -178,12 +178,18 @@ Options:
                        last checkpoint.  Requires ckpt_dir (default: off)
     metrics_file     : append one JSON metrics line per processed file
                        (per-step wall time, grid-points/s; default: off)
-    mesh             : decomposed run on the one card — "auto" or "PYxPX",
-                       e.g. --mesh=2x4 (default: no decomposition).  In a
-                       multi-process launch (WORLD_SIZE > 1, e.g. torchrun)
-                       the global mesh over all processes, whose rows split
+    mesh             : decomposed run over the cards — "auto" (one shard
+                       per card) or "PYxPX", e.g. --mesh=2x4, whose shards
+                       split evenly over the cards (default: no
+                       decomposition).  In a multi-process launch
+                       (WORLD_SIZE > 1, e.g. torchrun) the global mesh over
+                       all processes, one card each, whose rows split
                        evenly over them (default: one row per process)
-    device           : torch device of the run (default: cuda)
+    device           : torch device of the run (default: the current card,
+                       and for --mesh every visible card); a comma-separated
+                       list, e.g. cuda:0,cuda:1, lays the mesh over those
+                       devices, one group of shards per entry (an entry may
+                       repeat: several groups on one card)
     use_kernels      : false runs the plain torch path instead of the
                        hand-written kernels (default: the kernels on CUDA)
     any diag kwarg   : science-parameter override, e.g. --maxdist=250
@@ -202,6 +208,8 @@ def cli(argv=None):
             sys.exit(HELP)
         if value.lower() in ("true", "false"):
             value = value.lower() == "true"
+        elif key.lower() == "device" and "," in value:
+            value = value.split(",")
         else:
             try:
                 value = float(value)

@@ -16,18 +16,27 @@
 // In a multi-process run each process holds a block of whole mesh rows and
 // the lat strips of its edge rows come from the neighbouring processes:
 // given a strip (C, hy, px * w) of the neighbour's boundary rows at full
-// width for the top or the bottom (sbz_halo_exchange_edges), the rows
+// width for the top or the bottom (sbz_halo_exchange_range), the rows
 // beyond that edge take it in place of the fill, its columns ringed and
 // seam-patched as a neighbour shard's would be.
 //
 // The TPU kernel runs once per chip and pushes its strips into the
 // neighbours' buffers by remote DMA, after a barrier-semaphore round and
 // with a collective id per channel, because every chip runs its own copy.
-// Here one process holds every shard on one card and stream order already
-// orders the launch after the writes of its sources, so one launch serves
-// all shards and all channels, with no barrier.  The shard pointers travel
-// by value in the kernel's argument struct (up to kMaxShards), so no
-// pointer table is copied to the device per call.
+// Here one process drives every shard, and a mesh is split into groups of
+// contiguous shards, each group on one card (parallel/mesh.py).  A launch
+// serves one group: it writes the padded blocks of the group's shards
+// [s0, s1) only, on the group's card and stream, and pulls what they need
+// from any shard's source block: across cards through peer pointers (UVA,
+// peer access enabled by sbz_enable_peer), so nothing is pushed and the
+// pull takes the place of the remote DMA.  The barrier is the wrapper's:
+// before the launch the group's stream waits on an event of each group it
+// reads, recorded after their sources were written, and afterwards those
+// groups' streams wait on the launch (ops/cuda/halo_kernel.py).  A mesh of
+// one group is one launch for all shards and channels, ordered after the
+// writes of its sources by the stream alone.  The shard pointers travel by
+// value in the kernel's argument struct (up to kMaxShards), so no pointer
+// table is copied to the device per call.
 //
 // What bounds it on an H100: device memory.  Every source float is read
 // once and every padded float written once: 8.8 MB at the 0.25-degree
@@ -69,9 +78,12 @@ constexpr int kMaxShards = 64;
 constexpr int NT = 256;      // threads per block
 constexpr int UNROLL = 4;    // 16-byte units per lane loaded before a store
 
+// Every shard's source block, and the destination blocks of the launch's
+// `shards` shards from Geometry::s0 on.
 struct ShardPtrs {
   const float* src[kMaxShards];
   float* dst[kMaxShards];
+  int shards;
 };
 
 // The strips of a process edge (top, bottom), or null where the edge is
@@ -80,8 +92,9 @@ struct Edges {
   const float* strip[2];
 };
 
+// s0: the first destination shard of the launch's group.
 struct Geometry {
-  int py, px, c, h, w, hy, hx, zero_fill, exact_lon;
+  int py, px, c, h, w, hy, hx, zero_fill, exact_lon, s0;
 };
 
 // Four consecutive floats starting `sh` floats into the 8 of (lo, hi).
@@ -104,14 +117,15 @@ halo_rows(const ShardPtrs p, const Geometry g, const Edges e) {
   const int hp = g.h + 2 * g.hy, wp = g.w + 2 * g.hx;
   const int nlat = g.py * g.h;
   const int per_shard = g.c * hp;
-  const int rows = g.py * g.px * per_shard;
+  const int rows = p.shards * per_shard;
   const int lane = threadIdx.x % 32;
   const int warps = gridDim.x * (NT / 32);
 
   for (int row = blockIdx.x * (NT / 32) + threadIdx.x / 32; row < rows;
        row += warps) {
     // the row's sources, once per row
-    const int s = row / per_shard, rr = row - s * per_shard;
+    const int sl = row / per_shard, rr = row - sl * per_shard;
+    const int s = g.s0 + sl;
     const int ch = rr / hp, r = rr - ch * hp;
     const int iy = s / g.px, ix = s - iy * g.px;
     int gy = iy * g.h + r - g.hy;
@@ -140,7 +154,7 @@ halo_rows(const ShardPtrs p, const Geometry g, const Edges e) {
     }
     const bool seam_l = g.exact_lon && ix == 0;           // slot hx - 1
     const bool seam_r = g.exact_lon && ix == g.px - 1;    // slot hx + w - 1
-    float* D = p.dst[s] + (size_t)rr * wp;
+    float* D = p.dst[sl] + (size_t)rr * wp;
 
     // the aligned units inside the centre span: columns u0, u0 + 4, ...
     // (u0 + 4n <= the span's end, the right seam slot left out)
@@ -189,50 +203,53 @@ halo_rows(const ShardPtrs p, const Geometry g, const Edges e) {
   }
 }
 
+constexpr int kMaxDevices = 64;
+
 // The persistent grid on the current device: the blocks the card holds at
-// once, worked out at the first launch and kept.
+// once, worked out at the first launch on each card and kept per card.
 template <bool EDGES>
 int resident_blocks() {
-  static int dev_seen = -1, blocks = 0;
+  static int blocks[kMaxDevices] = {};
   int dev = 0;
   cudaGetDevice(&dev);
-  if (dev != dev_seen) {
-    int per_sm = 0, sms = 0;
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, halo_rows<EDGES>,
-                                                  NT, 0);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    blocks = (per_sm > 0 ? per_sm : 1) * (sms > 0 ? sms : 1);
-    dev_seen = dev;
-  }
-  return blocks;
+  if (dev < kMaxDevices && blocks[dev]) return blocks[dev];
+  int per_sm = 0, sms = 0;
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, halo_rows<EDGES>,
+                                                NT, 0);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const int b = (per_sm > 0 ? per_sm : 1) * (sms > 0 ? sms : 1);
+  if (dev < kMaxDevices) blocks[dev] = b;
+  return b;
 }
 
 }  // namespace
 
-// src, dst: host arrays of the S = py * px device pointers; top, bot: the
-// device strips (c, hy, px * w) of a process edge, or null where the edge
-// is global (the fill).  Returns cudaGetLastError(), or
-// cudaErrorInvalidValue for more than kMaxShards shards or a halo wider
-// than the shard.
-extern "C" int sbz_halo_exchange_edges(const float* const* src,
+// src: host array of the S = py * px shards' device pointers; dst: of
+// the destination blocks of shards [s0, s1), the launch's group (dst[0]
+// is shard s0's); top, bot: the device strips (c, hy, px * w) of a process
+// edge, or null where the edge is global (the fill).  Launches on the
+// current device, which holds the destination blocks.  Returns
+// cudaGetLastError(), or cudaErrorInvalidValue for more than kMaxShards
+// shards, an empty or out-of-mesh range, or a halo wider than the shard.
+extern "C" int sbz_halo_exchange_range(const float* const* src,
                                        float* const* dst, int py, int px,
                                        int c, int h, int w, int hy, int hx,
                                        int zero_fill, int exact_lon,
                                        const float* top, const float* bot,
-                                       void* stream) {
+                                       int s0, int s1, void* stream) {
   const int shards = py * px;
   if (shards < 1 || shards > kMaxShards || hy < 0 || hy > h || hx < 0 ||
-      hx > w || c < 1)
+      hx > w || c < 1 || s0 < 0 || s1 <= s0 || s1 > shards)
     return (int)cudaErrorInvalidValue;
   ShardPtrs p;
-  for (int s = 0; s < shards; ++s) {
-    p.src[s] = src[s];
-    p.dst[s] = dst[s];
-  }
+  for (int s = 0; s < shards; ++s) p.src[s] = src[s];
+  for (int s = s0; s < s1; ++s) p.dst[s - s0] = dst[s - s0];
+  p.shards = s1 - s0;
   const Edges e{{top, bot}};
   // The seam patches exist only on a lon exchange (as in halo_finish).
-  const Geometry g{py, px, c, h, w, hy, hx, zero_fill, exact_lon && hx > 0};
-  const long long rows = (long long)shards * c * (h + 2 * hy);
+  const Geometry g{py, px, c, h, w, hy, hx, zero_fill, exact_lon && hx > 0,
+                   s0};
+  const long long rows = (long long)p.shards * c * (h + 2 * hy);
   const long long need = (rows + NT / 32 - 1) / (NT / 32);
   const cudaStream_t st = (cudaStream_t)stream;
   if (top || bot) {
@@ -252,7 +269,26 @@ extern "C" int sbz_halo_exchange(const float* const* src, float* const* dst,
                                  int py, int px, int c, int h, int w, int hy,
                                  int hx, int zero_fill, int exact_lon,
                                  void* stream) {
-  return sbz_halo_exchange_edges(src, dst, py, px, c, h, w, hy, hx,
-                                 zero_fill, exact_lon, nullptr, nullptr,
-                                 stream);
+  return sbz_halo_exchange_range(src, dst, py, px, c, h, w, hy, hx,
+                                 zero_fill, exact_lon, nullptr, nullptr, 0,
+                                 py * px, stream);
+}
+
+// Let kernels on card `dev` read card `peer`'s memory.  Already enabled
+// counts as done (and the error it leaves is cleared, so the next launcher
+// does not read it back as its own).  Restores the current device.
+extern "C" int sbz_enable_peer(int dev, int peer) {
+  int prev = 0;
+  cudaError_t err = cudaGetDevice(&prev);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaSetDevice(dev);
+  if (err == cudaSuccess) {
+    err = cudaDeviceEnablePeerAccess(peer, 0);
+    if (err == cudaErrorPeerAccessAlreadyEnabled) {
+      cudaGetLastError();
+      err = cudaSuccess;
+    }
+  }
+  cudaSetDevice(prev);
+  return (int)err;
 }

@@ -933,24 +933,30 @@ ring_kernel(const Fields f, const Scalars s) {
 // buffers of running sums (2 where they fit a block's shared memory, else
 // 1), its shared memory, and the blocks the card holds at once.
 struct Config {
-  int dev = -1, nn = -1, nbuf = 0, resident = 0;
+  int nn = -1, nbuf = 0, resident = 0;
   size_t smem = 0;
 };
+
+// Launch configurations are kept per card: cudaFuncSetAttribute is a
+// card's own, and a mesh over several cards alternates between them.
+constexpr int kMaxDevices = 64;
 
 // The launch of one build over the tiles of an (h, w) field: B1 on its
 // persistent grid (the blocks the card holds at once, at most one per
 // tile), B4 and B5 one block per tile.  The configuration is worked out
 // at the first launch at a radius and kept, so a launch at the radius of
-// the one before costs no driver query.  Returns 0, or the refusal of the
-// shared memory (and clears it, so the next launch does not read it back
-// as its own).
+// the one before on that card costs no driver query.  Returns 0, or the
+// refusal of the shared memory (and clears it, so the next launch does not
+// read it back as its own).
 template <int MODE, int HS, int VS>
 int launch_build(const Fields& f, Scalars s, cudaStream_t st) {
   auto kernel = ring_kernel<MODE, HS, VS>;
-  static Config c;
+  static Config configs[kMaxDevices];
+  Config spare;
   int dev = 0;
   cudaGetDevice(&dev);
-  if (c.dev != dev || c.nn != s.nn) {
+  Config& c = dev < kMaxDevices ? configs[dev] : spare;
+  if (c.nn != s.nn) {
     cudaError_t err = cudaSuccess;
     int per_sm = 0, nbuf = 2;
     size_t smem = 0;
@@ -969,7 +975,7 @@ int launch_build(const Fields& f, Scalars s, cudaStream_t st) {
     if (err != cudaSuccess) return (int)err;
     int sms = 0;
     cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    c = Config{dev, s.nn, nbuf, per_sm * sms, smem};
+    c = Config{s.nn, nbuf, per_sm * sms, smem};
   }
   s.nbuf = c.nbuf;
   const int ntiles = ((s.w + TW - 1) / TW) * ((s.h + TH - 1) / TH);

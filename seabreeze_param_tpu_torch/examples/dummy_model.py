@@ -13,10 +13,12 @@ with ``TriggerPipeline.step`` (kernels B2 and B4 on the card), on the
 reference dummy grid (nx=128, ny=96, 8 pressure levels).  ``--sharded``
 runs the decomposed pipeline instead (``ShardedPipeline.run`` over the
 fields repeated ``steps`` times, static coastline, as the JAX example does)
-on a ``--mesh=PYxPX`` mesh of one device (default ``auto``).
+on a ``--mesh=PYxPX`` mesh (default ``auto``) over every visible card, over
+``--device``'s one device, or over its comma-separated list (one group of
+shards per entry).
 
 Run:  python -m seabreeze_param_tpu_torch.examples.dummy_model [--steps=N]
-      [--device=cpu] [--sharded [--mesh=2x4]]
+      [--device=cpu|cuda:0,cuda:1] [--sharded [--mesh=2x4]]
 """
 from __future__ import annotations
 
@@ -67,23 +69,29 @@ def atmos_step(state, theta, u, v, pipe, fields_static):
     return (new_state, theta, u, v), outs["sb_con"]
 
 
-def run(steps=12, sharded=False, device="cuda", use_kernels=None,
+def run(steps=12, sharded=False, device=None, use_kernels=None,
         mesh="auto"):
     """``steps`` coupled steps from :func:`init_fields` (``sharded``: the
-    decomposed run on ``mesh``).  Returns the final state and the
-    (steps, NY, NX) stack of sb_con, on ``device``."""
+    decomposed run on ``mesh``).  ``device`` as ``api.diag``'s: None, the
+    current card (for ``sharded`` every visible card); one device; or a
+    list, a mesh over those devices (one group of shards each).  Returns
+    the final state and the (steps, NY, NX) stack of sb_con, on the (first)
+    device."""
     from ..core.grid import Grid
     from ..core.state import TriggerState
     from ..models.pipeline import TriggerPipeline
 
-    dev = torch.device(device)
+    mesh_devices = device
+    if isinstance(device, (list, tuple)):
+        device = device[0]
+    dev = torch.device("cuda" if device is None else device)
     f = init_fields()
     grid = Grid.regular(NY, NX, lat0=60.0, lat1=-60.0)
     pipe = TriggerPipeline(grid, device=dev, use_kernels=use_kernels)
     if sharded:
         from ..parallel.mesh import make_mesh
         from ..parallel.sharded import ShardedPipeline
-        sp = ShardedPipeline(pipe, make_mesh(mesh, device=dev))
+        sp = ShardedPipeline(pipe, make_mesh(mesh, device=mesh_devices))
         rep = {k: np.repeat(f[k][None], steps, axis=0)
                for k in ("theta", "u", "v")}
         final, outs = sp.run(TriggerState.zeros((NY, NX), dev), rep["theta"],
@@ -102,12 +110,14 @@ def run(steps=12, sharded=False, device="cuda", use_kernels=None,
 
 
 def main(argv):
-    steps, sharded, device, mesh = 12, False, "cuda", "auto"
+    steps, sharded, device, mesh = 12, False, None, "auto"
     for arg in argv:
         if arg.startswith("--steps="):
             steps = int(arg.split("=")[1])
         elif arg.startswith("--device="):
             device = arg.split("=")[1]
+            if "," in device:
+                device = device.split(",")
         elif arg.startswith("--mesh="):
             mesh = arg.split("=")[1]
         elif arg == "--sharded":
@@ -118,7 +128,8 @@ def main(argv):
     final, sb = run(steps=steps, sharded=sharded, device=device, mesh=mesh)
     sb = sb.cpu().numpy()
     active = sb[sb < 1.0e19]
-    print(f"{steps} coupled steps on {NY}x{NX} ({device}) in "
+    where = ",".join(device) if isinstance(device, list) else device
+    print(f"{steps} coupled steps on {NY}x{NX} ({where or 'cuda'}) in "
           f"{time.time() - t0:.1f}s (tt={final.tt})")
     print(f"sb_con: {np.count_nonzero(active)} active cells, "
           f"range [{active.min():.3f}, {active.max():.3f}]")

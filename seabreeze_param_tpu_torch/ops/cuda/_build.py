@@ -84,10 +84,13 @@ SIGNATURES = {
     # src[S], dst[S] (host pointer arrays), py, px, c, h, w, hy, hx,
     # zero_fill, exact_lon, stream
     "sbz_halo_exchange": (_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
-    # as above, then top, bot (the strips of a process edge, or null),
-    # stream
-    "sbz_halo_exchange_edges": (_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                                _P, _P, _P),
+    # as above, then top, bot (the strips of a process edge, or null), s0,
+    # s1 (the launch's group of destination shards; dst holds their s1 - s0
+    # pointers), stream
+    "sbz_halo_exchange_range": (_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                                _P, _P, _I, _I, _P),
+    # dev, peer: let kernels on card dev read card peer's memory
+    "sbz_enable_peer": (_I, _I),
 }
 
 #: Seconds the last build took in this process (0.0 when it was cached).

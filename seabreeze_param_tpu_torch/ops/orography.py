@@ -12,10 +12,14 @@ The four statistics are global.  :func:`sigmoid_weight_shards` takes them
 over a mesh's shard list: the per-shard partial sums, counts, maxima and
 minima are combined first (the JAX package's psum/pmax/pmin), then the sum
 of squares about the global mean; ``valid_mask`` leaves the lat-padding
-rows of a decomposed grid out of them.  In a multi-process run each
-process holds some of the shards, and its partials are gathered over every
-process before they are reduced, in global shard order with the same ops,
-so the weights equal one process's on the same mesh.
+rows of a decomposed grid out of them.  Shards may lie on several devices
+(the groups of a mesh over several cards): each shard's partials are
+taken on its own device and moved to the first shard's, where they are
+reduced in shard order, so the weights equal those of the same shards on
+one device, bit for bit.  In a multi-process run each process holds some
+of the shards, and its partials are gathered over every process before
+they are reduced, in global shard order with the same ops, so the weights
+equal one process's on the same mesh.
 """
 from __future__ import annotations
 
@@ -45,14 +49,19 @@ def sigmoid_weight_shards(stds, valid_masks, gather=None):
     (n, c) tensor of this process's per-shard partials with every other
     process's, in global shard order (``parallel.distributed.
     all_gather_cat``); None: these shards are the whole field."""
+    dev = stds[0].device
+
+    def stack(parts):
+        """The per-shard partials, in shard order, on ``dev``."""
+        return torch.stack([x.to(dev) for x in parts])
+
     vms = [torch.broadcast_to(vm, a.shape) for a, vm in zip(stds, valid_masks)]
-    counts = torch.stack([vm.sum() for vm in vms])
-    sums = torch.stack([torch.where(vm, a, 0.0).sum()
-                        for a, vm in zip(stds, vms)])
-    maxes = torch.stack([torch.where(vm, a, -torch.inf).max()
-                         for a, vm in zip(stds, vms)])
-    mins = torch.stack([torch.where(vm, a, torch.inf).min()
-                        for a, vm in zip(stds, vms)])
+    counts = stack([vm.sum() for vm in vms])
+    sums = stack([torch.where(vm, a, 0.0).sum() for a, vm in zip(stds, vms)])
+    maxes = stack([torch.where(vm, a, -torch.inf).max()
+                   for a, vm in zip(stds, vms)])
+    mins = stack([torch.where(vm, a, torch.inf).min()
+                  for a, vm in zip(stds, vms)])
     if gather is not None:
         # float64 carries the float32 partials and the counts exactly
         part = gather(torch.stack([counts.double(), sums.double(),
@@ -63,11 +72,12 @@ def sigmoid_weight_shards(stds, valid_masks, gather=None):
     n = float(int(counts.sum()))
     total, amax, amin = sums.sum(), maxes.max(), mins.min()
     mean = total / n
-    sq = torch.stack([torch.where(vm, (a - mean) ** 2, 0.0).sum()
-                      for a, vm in zip(stds, vms)])
+    sq = stack([torch.where(vm, (a - mean.to(a.device)) ** 2, 0.0).sum()
+                for a, vm in zip(stds, vms)])
     if gather is not None:
         sq = gather(sq.double()[:, None])[:, 0].float().contiguous()
     var = sq.sum()
     s = 2.0 / torch.sqrt(var / n)
     r = (amax - amin) / 4.0
-    return [1.0 / (1.0 + torch.exp(-s * (a - r))) for a in stds]
+    return [1.0 / (1.0 + torch.exp(-s.to(a.device) * (a - r.to(a.device))))
+            for a in stds]

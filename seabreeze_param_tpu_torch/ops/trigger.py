@@ -19,9 +19,9 @@ per-cell core:
 
 A decomposed run (``parallel.sharded``) calls the cores per shard with the
 shard's ``row_offset`` in the ``nlat_total``-row grid, which places the
-reference's unwritten last row; its basic step is
-:func:`trigger_step_shards`, one exchange of the ring inputs for all
-shards.
+reference's unwritten last row; its basic step exchanges the ring inputs
+of all shards at once between :func:`prepare_step`'s parts and
+:func:`trigger_core`.
 """
 from __future__ import annotations
 
@@ -194,35 +194,6 @@ def trigger_step(state: TriggerState, theta, u, v, cdist, z, std, pres,
         theta, u, v, cdist, z, std, pres, params, nn_max, smod)
     return trigger_core(state, t0, cdist, ws_new, wd_new, t0_pad, cd_pad,
                         params, nn_max, use_kernels=use_kernels)
-
-
-def trigger_step_shards(states, theta, u, v, cdist, z, smods, pres,
-                        params: Params, nn_max: int, *, ring_pad_fn,
-                        row_offsets, nlat_total: int,
-                        use_kernels: bool | None = None):
-    """:func:`trigger_step` over the shards of a mesh, the step of the
-    decomposed basic structure (``parallel.sharded``); the JAX package's
-    ``trigger_step`` with ``ring_pad_fn``.
-
-    Every field argument and ``states`` are lists of shard blocks (``pres``
-    a list too: the 1-D pressure repeated, or 3-D shards); ``smods`` are
-    the sigmoid weights taken over the whole mesh
-    (:func:`ops.orography.sigmoid_weight_shards`, whose ``valid_masks``
-    are the JAX ``valid_mask``).  ``ring_pad_fn(stacks, nn_max)`` exchanges
-    the shards' (2, h, w) ``[t0, cdist]`` stacks, all in one go, and
-    returns the padded stacks; ``row_offsets[i]`` is shard i's first
-    global row of ``nlat_total``.  Returns the lists ``(new_states,
-    outputs)``."""
-    t0 = [sea_level_temperature(*a) for a in zip(theta, z, smods)]
-    wind = [wind_at_level(*a, params.target_plev_pa)
-            for a in zip(u, v, pres)]
-    pads = ring_pad_fn([torch.stack(a) for a in zip(t0, cdist)], nn_max)
-    res = [trigger_core(st, t, cd, ws, wd, pad[0], pad[1], params, nn_max,
-                        row_offset=r0, nlat_total=nlat_total,
-                        use_kernels=use_kernels)
-           for st, t, cd, (ws, wd), pad, r0 in zip(states, t0, cdist, wind,
-                                                   pads, row_offsets)]
-    return [r[0] for r in res], [r[1] for r in res]
 
 
 def trigger_core_stacked(state: TriggerState, t0, cdist, ws_new, wd_new,

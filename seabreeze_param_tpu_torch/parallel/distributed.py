@@ -99,9 +99,11 @@ def barrier() -> None:
 def make_multihost_mesh(shape=None, device=None) -> ShardMesh:
     """This process's block of a global ``(py, px)`` mesh: ``py / world``
     contiguous mesh rows at full longitude, on ``device`` (default: the
-    current card).  ``shape`` — ``None``/``'auto'``: ``(world, 1)``, the JAX
-    package's rule with one device per process; ``'PYxPX'`` or a tuple.
-    The lat axis must split evenly over the processes."""
+    current card), one card per process: the block is one group
+    (``parallel.mesh``), where JAX's multi-host meshes may hold several
+    devices a process.  ``shape`` — ``None``/``'auto'``: ``(world, 1)``,
+    the JAX package's rule with one device per process; ``'PYxPX'`` or a
+    tuple.  The lat axis must split evenly over the processes."""
     world = world_size()
     dims = parse_shape(shape) or (world, 1)
     if dims[0] % world:

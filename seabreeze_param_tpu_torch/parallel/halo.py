@@ -20,13 +20,18 @@ Split phase, as in the JAX package: :func:`halo_start` issues the exchange
 and :func:`halo_finish` returns the padded blocks; :func:`halo_pad` is both
 at once.  Two backends:
 
-* ``'kernel'`` — kernel B6 (``ops/cuda/halo_kernel.py``): ONE launch for
-  every shard and channel, with the lat fills and seam patches folded in,
-  so the padded blocks are complete when ``halo_start`` returns (its CPU
-  tensors take the plain version below);
+* ``'kernel'`` — kernel B6 (``ops/cuda/halo_kernel.py``): one launch per
+  group of the mesh (ONE for a mesh on one device) for all of its shards
+  and channels, with the lat fills and seam patches folded in, so the
+  padded blocks are complete when ``halo_start`` returns (its CPU tensors
+  take the plain version below); over several groups each launch runs on
+  its group's device and stream after the groups it reads from
+  (``halo_exchange_cuda``);
 * ``'plain'`` — B6's plain version: ``halo_start`` slices each shard's
-  eight neighbour strips and corners (:func:`halo_parts`), ``halo_finish``
-  joins them with ``torch.cat`` and applies the fills and patches.
+  eight neighbour strips and corners (:func:`halo_parts`, each moved to
+  the destination shard's device), ``halo_finish`` joins them with
+  ``torch.cat`` and applies the fills and patches, on the current
+  streams.
 
 The fill options are given to ``halo_start`` (the JAX package gives them
 to ``halo_finish``), because B6 applies them in its one launch.
@@ -92,6 +97,10 @@ def halo_parts(local, mesh: ShardMesh, hy: int, hx: int,
             p["tr"] = cut(iy - 1, ix + 1, top_r, right_c)
             p["bl"] = cut(iy + 1, ix - 1, bot_r, left_c)
             p["br"] = cut(iy + 1, ix + 1, bot_r, right_c)
+        if mesh.groups > 1:
+            dev = local[s].device
+            p = {key: None if t is None else t.to(dev)
+                 for key, t in p.items()}
         parts.append(p)
     return parts
 
@@ -104,17 +113,20 @@ def quirky_seam_patch(blocks, mesh: ShardMesh, hx: int, w: int):
     halo's first column (global column 0).  Also right for blocks whose
     values were computed on a periodic apron (the slot layout is
     positional).  Returns a new list; patched blocks are copies."""
-    out = list(blocks)
-    for s, b in enumerate(blocks):
-        _, ix = mesh.coords(s)
-        if ix == 0 or ix == mesh.px - 1:
-            b = b.clone()
-            if ix == 0:
-                b[..., :, hx - 1] = b[..., :, hx]
-            if ix == mesh.px - 1:
-                b[..., :, hx + w - 1] = b[..., :, hx + w]
-            out[s] = b
-    return out
+    return [seam_patch(b, mesh.coords(s)[1], mesh.px, hx, w)
+            for s, b in enumerate(blocks)]
+
+
+def seam_patch(b, ix: int, px: int, hx: int, w: int):
+    """:func:`quirky_seam_patch` of one block, in mesh column ``ix`` of
+    ``px``: ``b`` itself, or a patched copy in the first or last column."""
+    if ix == 0 or ix == px - 1:
+        b = b.clone()
+        if ix == 0:
+            b[..., :, hx - 1] = b[..., :, hx]
+        if ix == px - 1:
+            b[..., :, hx + w - 1] = b[..., :, hx + w]
+    return b
 
 
 def check_exchange(local, mesh: ShardMesh, hy: int, hx: int, lat_fill):
@@ -198,9 +210,10 @@ def halo_start(local, mesh: ShardMesh, hy: int, hx: int, *,
                lat_fill: str = "clamp", exact_lon: bool = True,
                backend: str = "kernel") -> HaloParts:
     """Issue the exchange of a shard list (``mesh.size`` tensors of one
-    shape ``(..., h, w)``).  ``'kernel'``: one launch of B6 (the plain
-    version for CPU tensors) writes the finished padded blocks; ``'plain'``:
-    the neighbour strips are sliced, to be joined by :func:`halo_finish`.
+    shape ``(..., h, w)``, each on its group's device).  ``'kernel'``: one
+    launch of B6 per group (the plain version for CPU tensors) writes the
+    finished padded blocks; ``'plain'``: the neighbour strips are sliced,
+    to be joined by :func:`halo_finish`.
     A process edge's rows are traded with the neighbour first (module
     docstring)."""
     backend = resolve_backend(backend)

@@ -3,12 +3,18 @@
 
 The JAX package runs the per-shard scan under ``shard_map``, one shard per
 device, with ``ppermute`` exchanges (or its DMA kernel) between them.  Here
-one process holds every shard of a :class:`parallel.mesh.ShardMesh` on one
-device: each step runs the shards one after another, each on its own
-launches, and every halo exchange serves all shards at once through
-``parallel.halo`` — on the kernel path one launch of kernel B6.  The
-sigmoid's global statistics are combined over the shard list
-(``ops.orography.sigmoid_weight_shards``).
+one process drives every shard of a :class:`parallel.mesh.ShardMesh`, whose
+groups of shards may lie on several cards (or several times on one): each
+step runs each group's shards one after another, each on its own
+launches, on the group's device, and every halo exchange serves all shards
+at once through ``parallel.halo`` — on the kernel path one launch of
+kernel B6 per group.  On the kernel path a mesh of several groups queues
+each group's work on the group's own stream (``parallel.mesh.on_group``),
+so groups on separate cards run at once; the exchanges order them
+(``ops.cuda.halo_kernel``).  The plain path runs the groups on the cards'
+current streams.  The sigmoid's global statistics are combined over the
+shard list in shard order on the first group's device
+(``ops.orography.sigmoid_weight_shards``); outputs are gathered there.
 
 Two step structures, as in the JAX package:
 
@@ -47,6 +53,7 @@ gathered over every process.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 
 import numpy as np
@@ -60,11 +67,10 @@ from ..ops.distance import (coast_distance_from_padded, device_tables,
                              uniform_half_dlam)
 from ..ops.orography import sigmoid_weight_shards
 from ..ops.trigger import (sea_level_temperature, trigger_core,
-                           trigger_core_stacked, trigger_step_shards,
-                           wind_at_level)
-from .halo import (halo_finish, halo_pad, halo_start, quirky_seam_patch,
-                   resolve_backend)
-from .mesh import ShardMesh, gather, split
+                           trigger_core_stacked, wind_at_level)
+from .halo import (halo_finish, halo_pad, halo_start, resolve_backend,
+                   seam_patch)
+from .mesh import ShardMesh, fork, gather, join, on_group, split
 
 OUT_KEYS = ("sb_con", "t0", "windspeed", "winddir")
 
@@ -99,7 +105,8 @@ class ShardedPipeline:
     plain version for CPU tensors) unless the pipeline has
     ``use_kernels=False``, then ``'plain'``.  The JAX package's
     ``'ppermute'`` and ``'dma'`` are ``'plain'`` and ``'kernel'`` here.
-    The shards live on ``mesh.device``, which must be the pipeline's.
+    The shards live on their groups' devices, of the pipeline's device
+    type; the outputs on ``mesh.device``.
     """
 
     pipeline: TriggerPipeline
@@ -113,7 +120,7 @@ class ShardedPipeline:
         py, px = mesh.shape
         if torch.device(pipe.device).type != mesh.device.type:
             raise ValueError(f"pipeline on {pipe.device}, mesh on "
-                             f"{mesh.device}")
+                             f"{[str(d) for d in mesh.devices]}")
         if grid.nlon % px:
             raise ValueError(f"nlon={grid.nlon} not divisible by mesh x={px}")
         py_all = mesh.global_shape[0]
@@ -156,9 +163,29 @@ class ShardedPipeline:
                 f"{basic}) exceeds the local shard extent {self.h}x{self.w}"
                 f"{' minus the quirky-seam margin' if exact else ''} on a "
                 f"{py}x{px} mesh; use fewer shards or a finer grid")
-        self.tables = device_tables(self.grid_padded, self.k, mesh.device)
+        self.tables = {dev: device_tables(self.grid_padded, self.k, dev)
+                       for dev in dict.fromkeys(mesh.devices)}
+        # the kernel path gives each group a stream of its own
+        self.streams = self.halo_backend == "kernel"
 
     # ------------------------------------------------------------------
+    def _groups(self):
+        """Each group's shards in turn, the loop's body queued on the
+        group's device and, on the kernel path, its stream."""
+        for g in range(self.mesh.groups):
+            with (on_group(self.mesh, g) if self.streams
+                  else contextlib.nullcontext()):
+                yield self.mesh.group_shards(g)
+
+    def _map(self, fn):
+        """``[fn(s) for s in range(mesh.size)]``, each shard's call on its
+        group (:meth:`_groups`)."""
+        out = [None] * self.mesh.size
+        for shards in self._groups():
+            for s in shards:
+                out[s] = fn(s)
+        return out
+
     def _exchange(self, local, width: int, lat_fill: str, exact_lon: bool):
         return halo_pad(local, self.mesh, width, width, lat_fill=lat_fill,
                         exact_lon=exact_lon, backend=self.halo_backend)
@@ -172,13 +199,19 @@ class ShardedPipeline:
         iy, ix = self.mesh.coords(s)
         return self.row_lo + iy * self.h, ix * self.w
 
-    def _distance(self, cpads, lsm_s, tables):
+    def _distance(self, cpad, lsm, tables):
         params = self.pipeline.params
-        return [coast_distance_from_padded(cp, lsm, tab, self.k,
-                                           params.maxdist,
-                                           impl=self.distance_impl,
-                                           half_dlam=self.half_dlam)
-                for cp, lsm, tab in zip(cpads, lsm_s, tables)]
+        return coast_distance_from_padded(cpad, lsm, tables, self.k,
+                                          params.maxdist,
+                                          impl=self.distance_impl,
+                                          half_dlam=self.half_dlam)
+
+    def _outputs(self, T):
+        """Each shard's (T, h, w) output stacks, on its device."""
+        return self._map(lambda s: {
+            key: torch.empty((T, self.h, self.w), dtype=torch.float32,
+                             device=self.mesh.device_of(s))
+            for key in OUT_KEYS})
 
     # ------------------------------------------------------------------
     def _core_overlap(self, states, xs, lsm_s, z_s, smods, pres_s, T):
@@ -189,131 +222,149 @@ class ShardedPipeline:
         exact = params.exact_lon_indexing
         h, w, nn, k = self.h, self.w, self.nn_max, self.k
         a_m = nn + k + 1
-        dev = mesh.device
         theta_s, u_s, v_s, ci_s = xs
 
         # once per run: static aprons and the ext blocks' tables
         z_ext, lsm_ext, smod_ext = (self._exchange(f, nn, "clamp", False)
                                     for f in (z_s, lsm_s, smods))
-        ext_tables, edges = [], []
-        for s in range(mesh.size):
+
+        def ext_table(s):
+            dev = mesh.device_of(s)
             r0, c0 = self._offsets(s)
             gr = torch.arange(r0 - nn, r0 + h + nn, device=dev)
             ridx = gr.clamp(0, self.nlat_pad - 1)
             cidx = torch.arange(c0 - nn, c0 + w + nn, device=dev) % (
                 self.grid_padded.nlon)
-            ext_tables.append(self.tables.select(ridx, cidx))
-            edges.append(((gr < 0)[:, None], (gr >= self.nlat_pad)[:, None]))
+            return (self.tables[dev].select(ridx, cidx),
+                    ((gr < 0)[:, None], (gr >= self.nlat_pad)[:, None]))
 
-        def distance_ext(mask_pads):
-            """Signed coast distance on each (h+2nn, w+2nn) ext block, all
+        ext = self._map(ext_table)
+
+        def distance_ext(s, mask_pad):
+            """Signed coast distance on shard s's (h+2nn, w+2nn) ext block,
             computed from the mask apron; beyond-globe apron rows take the
             globe-edge row (the reference's lat clamp)."""
-            cds = self._distance([sobel_edges_from_padded(m)
-                                  for m in mask_pads], lsm_ext, ext_tables)
-            for s, (below, above) in enumerate(edges):
-                r0 = self._offsets(s)[0]
-                if r0 == 0:
-                    cds[s] = torch.where(below, cds[s][nn:nn + 1], cds[s])
-                if r0 + h == self.nlat_pad:
-                    cds[s] = torch.where(above, cds[s][nn + h - 1:nn + h],
-                                         cds[s])
-            return cds
+            tables, (below, above) = ext[s]
+            cd = self._distance(sobel_edges_from_padded(mask_pad),
+                                lsm_ext[s], tables)
+            r0 = self._offsets(s)[0]
+            if r0 == 0:
+                cd = torch.where(below, cd[nn:nn + 1], cd)
+            if r0 + h == self.nlat_pad:
+                cd = torch.where(above, cd[nn + h - 1:nn + h], cd)
+            return cd
 
         cd_ext0 = None
         if ci_s is None:
-            cd_ext0 = distance_ext(self._exchange(
-                [make_mask(lsm) for lsm in lsm_s], a_m, "clamp", exact))
+            mpads = self._exchange(self._map(lambda s: make_mask(lsm_s[s])),
+                                   a_m, "clamp", exact)
+            cd_ext0 = self._map(lambda s: distance_ext(s, mpads[s]))
 
-        outs = [{key: torch.empty((T, h, w), dtype=torch.float32,
-                                  device=dev) for key in OUT_KEYS}
-                for _ in range(mesh.size)]
+        outs = self._outputs(T)
         if self.kernels:
             from ..ops.cuda.ring_kernel import StackedScan
-            scans = []
-            for s, st in enumerate(states):
-                scan = StackedScan(h, w, params, dev)
-                o = outs[s]
-                o["sb_con"], o["windspeed"], o["winddir"] = scan.init_buffers(
+
+            def scan(s):
+                sc = StackedScan(h, w, params, mesh.device_of(s))
+                o, st = outs[s], states[s]
+                o["sb_con"], o["windspeed"], o["winddir"] = sc.init_buffers(
                     T, st.windspeed, st.winddir,
                     row_offset=self._offsets(s)[0], nlat_total=self.nlat_real)
-                scans.append(scan)
+                return sc
+
+            scans = self._map(scan)
 
         inner = (slice(nn, nn + h), slice(nn, nn + w))
         for t in range(T):
             if ci_s is not None:
-                fm = self._start([make_mask(lsm, ci[t]) for lsm, ci in
-                                  zip(lsm_s, ci_s)], a_m, exact)
+                fm = self._start(self._map(
+                    lambda s: make_mask(lsm_s[s], ci_s[s][t])), a_m, exact)
             ft = self._start([th[t] for th in theta_s], nn, False)
             # the step's largest independent read, between start and finish
-            winds = [wind_at_level(u[t], v[t], p, params.target_plev_pa)
-                     for u, v, p in zip(u_s, v_s, pres_s)]
-            cd_ext = cd_ext0 if ci_s is None else distance_ext(halo_finish(fm))
-            t0_ext = [sea_level_temperature(*a) for a in
-                      zip(halo_finish(ft), z_ext, smod_ext)]
-            t0 = [e[inner] for e in t0_ext]
-            cdist = [e[inner].contiguous() for e in cd_ext]
-            if exact:
-                t0_ext = quirky_seam_patch(t0_ext, mesh, nn, w)
-                cd_ext = quirky_seam_patch(cd_ext, mesh, nn, w)
-            for s in range(mesh.size):
-                row_offset = self._offsets(s)[0]
-                args = (states[s], t0[s], cdist[s], *winds[s], t0_ext[s],
-                        cd_ext[s], params, nn)
-                o = outs[s]
-                if self.kernels:
-                    states[s], o["t0"][t] = trigger_core_stacked(
-                        *args, t, o["sb_con"], o["windspeed"], o["winddir"],
-                        scans[s].add_coastal(cdist[s]), row_offset=row_offset,
-                        nlat_total=self.nlat_real)
-                else:
-                    states[s], out = trigger_core(
-                        *args, row_offset=row_offset,
-                        nlat_total=self.nlat_real, use_kernels=False)
-                    for key in OUT_KEYS:
-                        o[key][t] = out[key]
+            winds = self._map(lambda s: wind_at_level(
+                u_s[s][t], v_s[s][t], pres_s[s], params.target_plev_pa))
+            mpads = None if ci_s is None else halo_finish(fm)
+            tpads = halo_finish(ft)
+            for shards in self._groups():
+                for s in shards:
+                    cd_ext = (cd_ext0[s] if ci_s is None
+                              else distance_ext(s, mpads[s]))
+                    t0_ext = sea_level_temperature(tpads[s], z_ext[s],
+                                                   smod_ext[s])
+                    t0 = t0_ext[inner]
+                    cdist = cd_ext[inner].contiguous()
+                    if exact:
+                        ix = mesh.coords(s)[1]
+                        t0_ext = seam_patch(t0_ext, ix, mesh.px, nn, w)
+                        cd_ext = seam_patch(cd_ext, ix, mesh.px, nn, w)
+                    row_offset = self._offsets(s)[0]
+                    args = (states[s], t0, cdist, *winds[s], t0_ext, cd_ext,
+                            params, nn)
+                    o = outs[s]
+                    if self.kernels:
+                        states[s], o["t0"][t] = trigger_core_stacked(
+                            *args, t, o["sb_con"], o["windspeed"],
+                            o["winddir"], scans[s].add_coastal(cdist),
+                            row_offset=row_offset, nlat_total=self.nlat_real)
+                    else:
+                        states[s], out = trigger_core(
+                            *args, row_offset=row_offset,
+                            nlat_total=self.nlat_real, use_kernels=False)
+                        for key in OUT_KEYS:
+                            o[key][t] = out[key]
         return states, outs
 
     # ------------------------------------------------------------------
     def _core_basic(self, states, xs, lsm_s, z_s, smods, pres_s, T):
-        """Basic structure: three exchanges per step."""
+        """Basic structure: three exchanges per step (the JAX package's
+        ``trigger_step`` with a ``ring_pad_fn``)."""
         params, mesh = self.pipeline.params, self.mesh
         exact = params.exact_lon_indexing
-        h, w, k = self.h, self.w, self.k
+        h, w, k, nn = self.h, self.w, self.k, self.nn_max
         theta_s, u_s, v_s, ci_s = xs
-        tables = []
-        for s in range(mesh.size):
+
+        def table(s):
             r0, c0 = self._offsets(s)
-            tables.append(self.tables.select(slice(r0, r0 + h),
-                                             slice(c0, c0 + w)))
+            return self.tables[mesh.device_of(s)].select(
+                slice(r0, r0 + h), slice(c0, c0 + w))
+
+        tables = self._map(table)
 
         def distance(ci):
-            masks = [make_mask(lsm, c) for lsm, c in zip(lsm_s, ci)]
-            mpads = self._exchange(masks, 1, "clamp", exact)
-            coast = [sobel_edges_from_padded(m) for m in mpads]
+            mpads = self._exchange(self._map(
+                lambda s: make_mask(lsm_s[s], ci[s])), 1, "clamp", exact)
+            coast = self._map(lambda s: sobel_edges_from_padded(mpads[s]))
             # get_dist uses the clean periodic lon map (sobel.f90:163-164)
-            return self._distance(self._exchange(coast, k, "zero", False),
-                                  lsm_s, tables)
+            cpads = self._exchange(coast, k, "zero", False)
+            return self._map(lambda s: self._distance(cpads[s], lsm_s[s],
+                                                      tables[s]))
 
         cdist0 = distance([None] * mesh.size) if ci_s is None else None
-        row_offsets = [self._offsets(s)[0] for s in range(mesh.size)]
-        outs = [{key: torch.empty((T, h, w), dtype=torch.float32,
-                                  device=mesh.device) for key in OUT_KEYS}
-                for _ in range(mesh.size)]
+        outs = self._outputs(T)
         for t in range(T):
             cdist = (cdist0 if ci_s is None
                      else distance([ci[t] for ci in ci_s]))
-            states, step = trigger_step_shards(
-                states, [th[t] for th in theta_s], [u[t] for u in u_s],
-                [v[t] for v in v_s], cdist, z_s, smods, pres_s, params,
-                self.nn_max,
-                ring_pad_fn=lambda stacks, nn: self._exchange(stacks, nn,
-                                                              "clamp", exact),
-                row_offsets=row_offsets, nlat_total=self.nlat_real,
-                use_kernels=self.kernels)
-            for o, out in zip(outs, step):
-                for key in OUT_KEYS:
-                    o[key][t] = out[key]
+
+            def prepare(s):
+                t0 = sea_level_temperature(theta_s[s][t], z_s[s], smods[s])
+                return t0, wind_at_level(u_s[s][t], v_s[s][t], pres_s[s],
+                                         params.target_plev_pa)
+
+            prep = self._map(prepare)
+            # the ring inputs [t0, cdist] of every shard in one exchange
+            pads = self._exchange(self._map(
+                lambda s: torch.stack((prep[s][0], cdist[s]))), nn, "clamp",
+                exact)
+            for shards in self._groups():
+                for s in shards:
+                    t0, (ws, wd) = prep[s]
+                    states[s], out = trigger_core(
+                        states[s], t0, cdist[s], ws, wd, pads[s][0],
+                        pads[s][1], params, nn,
+                        row_offset=self._offsets(s)[0],
+                        nlat_total=self.nlat_real, use_kernels=self.kernels)
+                    for key in OUT_KEYS:
+                        outs[s][key][t] = out[key]
         return states, outs
 
     # ------------------------------------------------------------------
@@ -324,7 +375,7 @@ class ShardedPipeline:
         lat, takes this process's rows, runs them (:meth:`run_block`),
         gathers every process's rows and slices back to the real rows.
         Returns ``(final_state, outputs)``, outputs the four (T, nlat,
-        nlon) tensors; ``state`` is not modified."""
+        nlon) tensors on ``mesh.device``; ``state`` is not modified."""
         dev = self.mesh.device
         if self.mesh.world == 1:
             def block(a):
@@ -372,21 +423,27 @@ class ShardedPipeline:
               None if ci_t is None else shards(ci_t))
         pres_t = _f32(pres, dev)
         pres_s = (shards(pres_t) if pres_t.dim() == 3
-                  else [pres_t] * mesh.size)
+                  else [pres_t.to(mesh.device_of(s))
+                        for s in range(mesh.size)])
         lsm_s, z_s, std_s = (shards(a) for a in (lsm, z, std))
         states = [TriggerState(int(state.tt), *f) for f in zip(
             *(shards(a) for a in (state.thc, state.windspeed,
                                   state.winddir)))]
-        valid = [(torch.arange(r0, r0 + self.h, device=dev)
+        valid = [(torch.arange(r0, r0 + self.h, device=mesh.device_of(s))
                   < self.nlat_real)[:, None]
-                 for r0 in (self._offsets(s)[0] for s in range(mesh.size))]
+                 for s, r0 in ((s, self._offsets(s)[0])
+                               for s in range(mesh.size))]
         if mesh.world > 1:
             from .distributed import all_gather_cat
             smods = sigmoid_weight_shards(std_s, valid, all_gather_cat)
         else:
             smods = sigmoid_weight_shards(std_s, valid)
         core = self._core_overlap if self.overlap else self._core_basic
+        if self.streams:
+            fork(mesh)
         states, outs = core(states, xs, lsm_s, z_s, smods, pres_s, T)
+        if self.streams:
+            join(mesh)
         final = TriggerState(states[0].tt, *(
             gather([getattr(st, f) for st in states], mesh)
             for f in ("thc", "windspeed", "winddir")))

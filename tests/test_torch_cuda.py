@@ -1172,3 +1172,122 @@ def test_sharded_kernel_path_matches_plain(mesh_shape, dev):
         torch.testing.assert_close(getattr(bs, f), getattr(ks, f), rtol=0,
                                    atol=0)
     assert ko["sb_con"].shape == (T,) + lsm.shape
+
+
+#: (mesh shape, field shape, groups) of the grouped exchanges: one card
+#: named once per group, so the cross-group code runs on one card.
+GROUPED_HALO = [((2, 2), (74, 140), 2), ((2, 2), (74, 140), 4),
+                ((2, 4), (74, 140), 4), ((1, 4), (30, 84), 2),
+                ((4, 1), (56, 45), 4), ((3, 3), (33, 99), 3)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", range(len(GROUPED_HALO)))
+@pytest.mark.parametrize("lat_fill,exact_lon", HALO_FILLS)
+@pytest.mark.parametrize("channels", [1, 2])
+def test_halo_kernel_groups_bit_equal_to_plain(case, lat_fill, exact_lon,
+                                               channels, dev):
+    """B6 over a mesh of several groups on one card, one launch per group
+    on the group's stream, against its plain version and the one-group
+    launch, bit for bit, at no, 1-wide, uneven and full-shard widths."""
+    (py, px), (nlat, nlon), groups = GROUPED_HALO[case]
+    mesh = make_mesh((py, px), [dev] * groups)
+    one = make_mesh((py, px), dev)
+    assert mesh.groups == groups and one.groups == 1
+    shape = (channels, nlat, nlon) if channels > 1 else (nlat, nlon)
+    field = torch.as_tensor(np.random.default_rng(case).standard_normal(
+        shape).astype(np.float32), device=dev)
+    local = split(field, mesh)
+    h, w = nlat // py, nlon // px
+    kw = dict(lat_fill=lat_fill, exact_lon=exact_lon)
+    for hy, hx in ((0, 0), (1, 1), (3, 2), (h, w - 1 if exact_lon else w)):
+        before = halo_exchange_cuda.launches
+        got = halo_exchange_cuda(local, mesh, hy, hx, **kw)
+        assert halo_exchange_cuda.launches == before + groups
+        want = halo_exchange_plain(local, mesh, hy, hx, **kw)
+        ref = halo_exchange_cuda(local, one, hy, hx, **kw)
+        for g, p, r in zip(got, want, ref):
+            torch.testing.assert_close(g, p, rtol=0, atol=0)
+            torch.testing.assert_close(g, r, rtol=0, atol=0)
+
+
+def _grouped_runs(mesh, one, reps):
+    """``ShardedPipeline`` on the global121 world over ``mesh`` ``reps``
+    times and over ``one`` once, both structures; every grouped run is
+    held bit-equal to the one-group run, and its B6 launches counted."""
+    grid, (lsm, z, std, pres, theta, u, v, ci) = _world("global121")
+    rng = np.random.default_rng(0)
+    ws = (5 + rng.random(lsm.shape)).astype(np.float32)
+    state = TriggerState(14, *(torch.as_tensor(a, device=one.device)
+                               for a in (np.zeros_like(ws), ws, -ws)))
+    T = len(theta)
+    for overlap in (True, False):
+        pipe = TriggerPipeline(grid, device=one.device)
+        ref = ShardedPipeline(pipe, one, overlap=overlap).run(
+            state, theta, u, v, lsm, z, std, pres, ci_t=ci)
+        sp = ShardedPipeline(pipe, mesh, overlap=overlap)
+        assert sp.overlap is overlap
+        for rep in range(reps):
+            before = halo_exchange_cuda.launches
+            got = sp.run(state, theta, u, v, lsm, z, std, pres, ci_t=ci)
+            exchanges = 3 + 2 * T if overlap else 3 * T
+            assert (halo_exchange_cuda.launches - before
+                    == mesh.groups * exchanges)
+            for key in ref[1]:
+                torch.testing.assert_close(got[1][key], ref[1][key], rtol=0,
+                                           atol=0, msg=f"{key} rep {rep}")
+            for f in ("thc", "windspeed", "winddir"):
+                torch.testing.assert_close(getattr(got[0], f),
+                                           getattr(ref[0], f), rtol=0,
+                                           atol=0, msg=f"{f} rep {rep}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("groups", [2, 4])
+def test_sharded_groups_on_one_card_bit_equal_repeated(groups, dev):
+    """2 x 2 shards in ``groups`` groups on one card, each group on its own
+    stream (B6 per group + B2 + B1, basic B4), 20 runs in a row, each
+    bit-equal to the one-group mesh: a source shard is neither rewritten
+    nor reused by its owner before its readers have read it."""
+    _grouped_runs(make_mesh((2, 2), [dev] * groups), make_mesh((2, 2), dev),
+                  reps=20)
+
+
+@pytest.fixture
+def two_cards(dev):
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two cards: the peer path across cards")
+    return [torch.device("cuda", 0), torch.device("cuda", 1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lat_fill,exact_lon", HALO_FILLS)
+def test_halo_kernel_across_cards_bit_equal_to_plain(lat_fill, exact_lon,
+                                                     two_cards):
+    """B6 over a 2 x 2 mesh on two cards (and four groups on them), the
+    launches reading the other card's shards through peer pointers, bit
+    for bit against the plain version and the one-card launch."""
+    kw = dict(lat_fill=lat_fill, exact_lon=exact_lon)
+    field = torch.as_tensor(np.random.default_rng(5).standard_normal(
+        (2, 74, 140)).astype(np.float32), device=two_cards[0])
+    one = make_mesh((2, 2), two_cards[0])
+    for devices in (two_cards, two_cards * 2):
+        mesh = make_mesh((2, 2), devices)
+        local = split(field, mesh)
+        assert {x.device for x in local} == set(two_cards)
+        for hy, hx in ((1, 1), (3, 2), (37, 34 if exact_lon else 35)):
+            got = halo_exchange_cuda(local, mesh, hy, hx, **kw)
+            want = halo_exchange_plain(local, mesh, hy, hx, **kw)
+            ref = halo_exchange_cuda(split(field, one), one, hy, hx, **kw)
+            for s, (g, p, r) in enumerate(zip(got, want, ref)):
+                assert g.device == mesh.device_of(s)
+                torch.testing.assert_close(g, p, rtol=0, atol=0)
+                torch.testing.assert_close(g.to(r.device), r, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_sharded_across_cards_bit_equal_repeated(two_cards):
+    """2 x 2 shards on two cards, both structures, 20 runs in a row, each
+    bit-equal to the one-group mesh on the first card."""
+    _grouped_runs(make_mesh((2, 2), two_cards),
+                  make_mesh((2, 2), two_cards[0]), reps=20)

@@ -169,13 +169,14 @@ def test_width_guard_and_refusals():
 
 def test_mesh_helpers():
     """make_mesh shapes, split/gather round trip (copies, never views), the
-    refusal of a device set of several cards."""
+    JAX rule over a device list (one shard per entry), the refusal of a
+    list that mixes device types."""
     assert make_mesh("2x4", "cpu").shape == (2, 4)
     assert make_mesh((4, 2), "cpu").shape == (4, 2)
     auto = make_mesh(None, "cpu")
     assert auto.shape == (1, 1) and auto.device == torch.device("cpu")
-    assert make_mesh("auto", ["cpu", "cpu"]).shape == (1, 1)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    assert make_mesh("auto", ["cpu", "cpu"]).shape == (1, 2)
+    with pytest.raises(ValueError, match="mixes device types"):
         make_mesh((1, 2), ["cpu", "meta"])
     with pytest.raises(ValueError, match=">= 1"):
         make_mesh((0, 2), "cpu")
