@@ -87,6 +87,11 @@ WIDE_WORLDS, WIDE_STEPS = ((387, 0.0036), (620, 0.00225)), 2
 #: The multi-process phase: ranks over gloo sharing the one card, and the
 #: seconds each launch of them may take.
 MP_RANKS, MP_TIMEOUT = 2, 480
+#: The ranks' grouped blocks: each rank's block of these global meshes over
+#: MP_GROUPS groups of the one card (2 x 4: a 1 x 4 block, one mesh row
+#: across both groups; 4 x 2: a 2 x 2 block, a mesh row each), and the
+#: calls of B6's exchange with the trade that are timed together.
+MP_GROUP_MESHES, MP_GROUPS, MP_TRADES = ("2x4", "4x2"), 2, 20
 #: B2's two-extremum form alone: the radii it is held bit-equal at (the
 #: main world's 6 and 0.1 deg's 15, its staged build's widest, 93, and one
 #: past, and 387 on the unstaged routine), those timed, and the seed of its
@@ -176,8 +181,9 @@ def device_ms(fn, reps=20, flush=True):
 
 
 #: Published peaks of one H100 SXM at 700 W (NVIDIA's data sheet): device
-#: memory in bytes/s, float32 outside the tensor cores in operations/s.
-PEAK_BYTES, PEAK_F32 = 3.35e12, 67e12
+#: memory in bytes/s, float32 outside the tensor cores in operations/s, and
+#: its host link (PCIe 5.0 x16) in bytes/s each way.
+PEAK_BYTES, PEAK_F32, PEAK_HOST_LINK = 3.35e12, 67e12, 64e9
 
 
 def timing(kernel, plain, nbytes, ops, *, library=None, library_note=None,
@@ -1379,22 +1385,36 @@ def phase_halo(name, out):
                          "library_ms")} for t, m in rows.items()}, **ref)
 
 
-def halo_take(local, mesh, width, kw):
+def halo_take(local, mesh, width, kw, edges=None):
     """One PyTorch call computing B6's padded shards, as its yardstick: an
     exchange of index fields (1-based; 0 where a fill puts a zero) gives the
     map, and ``torch.take`` of the stacked shards, a zero in front, reads
-    every padded shard at once.  Returns the call; stacking the inputs is
-    not part of it."""
+    every padded shard at once; ``edges`` (process edges on one card, as
+    ``halo_exchange_cuda`` takes them) are indexed after the shards.
+    Returns the call; stacking the inputs is not part of it."""
     import torch
     from seabreeze_param_tpu_torch.parallel.halo import halo_exchange_plain
+    dev = local[0].device
     n = local[0].numel()
     ids = [torch.arange(1 + s * n, 1 + (s + 1) * n, dtype=torch.float64,
-                        device=local[0].device).reshape(local[0].shape)
+                        device=dev).reshape(local[0].shape)
            for s in range(len(local))]
-    idx = torch.stack(halo_exchange_plain(ids, mesh, width, width, **kw)
-                      ).long()
-    src = torch.cat([torch.zeros(1, device=local[0].device),
-                     torch.stack(local).reshape(-1)])
+    parts, id_edges, top = [torch.stack(local).reshape(-1)], None, 1 + len(
+        local) * n
+    if edges:
+        (pair,) = edges.values()
+        id_pair = []
+        for e in pair:
+            id_pair.append(None if e is None else torch.arange(
+                top, top + e.numel(), dtype=torch.float64,
+                device=dev).reshape(e.shape))
+            if e is not None:
+                parts.append(e.reshape(-1))
+                top += e.numel()
+        id_edges = {dev: tuple(id_pair)}
+    idx = torch.stack(halo_exchange_plain(ids, mesh, width, width,
+                                          edges=id_edges, **kw)).long()
+    src = torch.cat([torch.zeros(1, device=dev)] + parts)
     return lambda: torch.take(src, idx)
 
 
@@ -2759,6 +2779,157 @@ def rank_driver(conf, res, what, ref, days, **kw):
                      ms_per_step=secs / (len(days) * DRIVER_STEPS) * 1e3)
 
 
+def rank_runner(runner, d, rout, rstate, what):
+    """One rank's ``DistributedRunner`` on its rows of the resident inputs
+    ``d`` (the main world's first SHARD_STEPS steps), once to warm up and
+    once with the launch counts zeroed just before: the launches (B6
+    once a group an exchange), bit-equal to one process's run ``rout`` /
+    ``rstate`` on the same global mesh; returns what it measured, and the
+    block's outputs."""
+    import torch
+    from seabreeze_param_tpu_torch.core.state import TriggerState
+    from seabreeze_param_tpu_torch.parallel import distributed as dist
+    mesh, T = runner.sp.mesh, SHARD_STEPS
+    nlat, nlon = runner.sp.nlat_real, d[3].shape[-1]
+    if not runner.sp.overlap:
+        raise AssertionError(f"{what}: not the overlapped structure")
+    lo, hi = runner.row_lo, min(runner.row_hi, nlat)
+    local = [x if x.dim() == 1 else x[..., lo:hi, :].contiguous()
+             for x in d]
+
+    def go():
+        dist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = runner.run(TriggerState.zeros((hi - lo, nlon), d[3].device),
+                       *local[:7], ci_t=local[7])
+        torch.cuda.synchronize()
+        dist.barrier()
+        return r, (time.perf_counter() - t0) / T * 1e3
+
+    go()                                        # warm-up
+    zero_launches()
+    (fin, outs), ms = go()
+    launches = {n: c for n, c in read_launches().items() if c}
+    want = {"halo_exchange": mesh.groups * (3 + 2 * T),
+            "ring_trigger_stacked": mesh.size * T,
+            dist_kernel(): mesh.size * T}
+    if launches != want:
+        raise AssertionError(f"{what} launches {launches}, want {want}")
+    for key in outs:
+        bit_equal(outs[key], rout[key][:, lo:hi], f"{what} {key}")
+    for key, x in final_fields(fin).items():
+        bit_equal(x, final_fields(rstate)[key][lo:hi], f"{what} final {key}")
+    return dict(launches=launches, ms_per_step=ms, rows=[lo, hi],
+                local_mesh=list(mesh.shape), groups=mesh.groups), outs
+
+
+def rank_groups(res, single, d):
+    """Part of :func:`rank_run`: each rank's block of the global meshes
+    MP_GROUP_MESHES over MP_GROUPS groups of the one card (as a JAX process
+    holds several devices), ``DistributedRunner`` bit-equal to one process
+    on the same global mesh and to one group a rank; then B6 with process
+    edges over the groups alone (theta's NN-wide exchange on the 2 x 4
+    global mesh, whose 1 x 4 block puts one mesh row across both groups, so
+    both read both edges): bit-equal to its plain version and to the
+    exchange with the trade, timed on the device (one rank at a time) and
+    by call with the trade (both ranks at once), beside its bounds."""
+    import torch
+    from seabreeze_param_tpu_torch.core.state import TriggerState
+    from seabreeze_param_tpu_torch.ops.cuda import halo_kernel
+    from seabreeze_param_tpu_torch.parallel import distributed as dist
+    from seabreeze_param_tpu_torch.parallel.halo import (halo_exchange_plain,
+                                                         halo_pad)
+    from seabreeze_param_tpu_torch.parallel.mesh import make_mesh, split
+    from seabreeze_param_tpu_torch.parallel.sharded import ShardedPipeline
+    dev = d[3].device
+    nlat, nlon = d[3].shape
+    for shape in MP_GROUP_MESHES:
+        rstate, rout = ShardedPipeline(single, make_mesh(shape, dev)).run(
+            TriggerState.zeros((nlat, nlon), dev), *d[:7], ci_t=d[7])
+        runs, outs = {}, {}
+        for label, devices in (("groups", [dev] * MP_GROUPS),
+                               ("one_group", dev)):
+            runs[label], outs[label] = rank_runner(
+                dist.DistributedRunner(ShardedPipeline(
+                    single, dist.make_multihost_mesh(shape, devices))),
+                d, rout, rstate, f"{shape} {label}")
+        for key, x in outs["groups"].items():
+            bit_equal(x, outs["one_group"][key],
+                      f"{shape} groups vs one group a rank {key}")
+        res[f"groups_{shape}"] = runs
+
+    mesh = dist.make_multihost_mesh("2x4", [dev] * MP_GROUPS)
+    flat = dist.make_multihost_mesh("2x4", dev)
+    nn = single.nn_max
+    h, w = -(-nlat // mesh.global_shape[0]), nlon // mesh.px
+    gen = torch.Generator(device=dev).manual_seed(6 + dist.rank())
+    field = torch.randn((mesh.py * h, nlon), generator=gen, device=dev)
+    local = split(field, mesh)
+    kw = dict(lat_fill="clamp", exact_lon=False)
+    edges = dist.exchange_edges(local, mesh, nn)
+    if set(edges) != {dev}:
+        raise AssertionError(f"process edges delivered to {set(edges)}")
+
+    def kernel():
+        return halo_kernel.halo_exchange_cuda(local, mesh, nn, nn,
+                                              edges=edges, **kw)
+
+    def plain():
+        return halo_exchange_plain(local, mesh, nn, nn, edges=edges, **kw)
+
+    def traded():
+        return halo_pad(local, mesh, nn, nn, **kw)
+
+    got = kernel()
+    take = halo_take(local, mesh, nn, kw, edges)
+    bit_equal(take(), torch.stack(got), "B6 process edges over groups vs "
+                                        "its torch.take yardstick")
+    for s, (g, p, t, f) in enumerate(zip(
+            got, plain(), traded(),
+            halo_pad(split(field, flat), flat, nn, nn, **kw))):
+        bit_equal(g, p, f"B6 process edges over groups, shard {s}, vs plain")
+        bit_equal(g, t, f"B6 process edges over groups, shard {s}, vs the "
+                        f"exchange with the trade")
+        bit_equal(g, f, f"B6 process edges over groups, shard {s}, vs one "
+                        f"group a rank")
+    # the card's bytes: sources and the edge strips read once, padded blocks
+    # written once; the host link's: each edge sent and received once
+    strip = 4 * nn * nlon
+    sends = sum(1 for peer in (dist.rank() - 1, dist.rank() + 1)
+                if 0 <= peer < dist.world_size())
+    card = 4 * mesh.size * (h * w + (h + 2 * nn) * (w + 2 * nn)) \
+        + strip * sends
+    link = 2 * strip * sends
+    t = None
+    for r in range(dist.world_size()):          # the device to one rank
+        dist.barrier()
+        if dist.rank() == r:
+            t = timing(kernel, plain, card, 0, library=take,
+                       library_note="torch.take of the stacked shards and "
+                                    "edge strips")
+            torch.cuda.synchronize()
+        dist.barrier()
+    calls = {}
+    for name, fn in (("trade_call_ms", traded),
+                     ("edges_call_ms", lambda: dist.exchange_edges(
+                         local, mesh, nn))):
+        fn()
+        dist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(MP_TRADES):
+            fn()
+        torch.cuda.synchronize()
+        calls[name] = (time.perf_counter() - t0) / MP_TRADES * 1e3
+    t.update(**calls,
+             trade_bound_ms=(link / PEAK_HOST_LINK
+                             + card / PEAK_BYTES) * 1e3,
+             host_link_bytes=link, groups=mesh.groups, max_abs_err=0.0,
+             nn=nn, smi=nvidia_smi())
+    res["b6_process_edges"] = t
+
+
 def rank_run(tmp, res, conf, conf2, ck):
     """One rank of :func:`phase_multiprocess`'s first launch: the
     references of one process first, then, in the group,
@@ -2792,58 +2963,35 @@ def rank_run(tmp, res, conf, conf2, ck):
     if dist.world_size() != MP_RANKS:
         raise AssertionError(f"world size {dist.world_size()}")
     mesh = dist.make_multihost_mesh(SHARD_MESH, dev)
-    runner = dist.DistributedRunner(ShardedPipeline(single, mesh))
-    if not runner.sp.overlap:
-        raise AssertionError("multiprocess: not the overlapped structure")
-    lo, hi = runner.row_lo, min(runner.row_hi, nlat)
-    local = [x if x.dim() == 1 else x[..., lo:hi, :].contiguous()
-             for x in d]
+    res["runner"] = rank_runner(dist.DistributedRunner(
+        ShardedPipeline(single, mesh)), d, rout, rstate, "runner")[0]
+    rank_groups(res, single, d)
 
-    def go():
-        dist.barrier()
+    # diag over the rank's card, and over MP_GROUPS groups of it
+    for what, device in (("diag", "cuda"), ("diag_groups", [dev] * MP_GROUPS)):
+        groups = 1 if device == "cuda" else MP_GROUPS
+        diag(*args, device=device, full_output=True, mesh=SHARD_MESH)
+        zero_launches()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        r = runner.run(TriggerState.zeros((hi - lo, nlon), dev), *local[:7],
-                       ci_t=local[7])
+        got = diag(*args, device=device, full_output=True, mesh=SHARD_MESH)
         torch.cuda.synchronize()
-        dist.barrier()
-        return r, (time.perf_counter() - t0) / T * 1e3
-
-    go()                                        # warm-up
-    zero_launches()
-    (fin, outs), ms = go()
-    launches = {n: c for n, c in read_launches().items() if c}
-    want = {"halo_exchange": 3 + 2 * T, "ring_trigger_stacked": mesh.size * T,
-            dist_kernel(): mesh.size * T}
-    if launches != want:
-        raise AssertionError(f"runner launches {launches}, want {want}")
-    for key in outs:
-        bit_equal(outs[key], rout[key][:, lo:hi], f"runner {key}")
-    for key, x in final_fields(fin).items():
-        bit_equal(x, final_fields(rstate)[key][lo:hi], f"runner final {key}")
-    res["runner"] = dict(launches=launches, ms_per_step=ms, rows=[lo, hi],
-                         local_mesh=list(mesh.shape))
-
-    diag(*args, device="cuda", full_output=True, mesh=SHARD_MESH)  # warm-up
-    zero_launches()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    got = diag(*args, device="cuda", full_output=True, mesh=SHARD_MESH)
-    torch.cuda.synchronize()
-    dms = (time.perf_counter() - t0) / T * 1e3
-    dlaunches = {n: c for n, c in read_launches().items() if c}
-    want[dist_kernel()] += 1                    # the ring probe
-    if dlaunches != want:
-        raise AssertionError(f"diag launches {dlaunches}, want {want}")
-    if got[0] != rdiag[0]:
-        raise AssertionError("diag: tt differs")
-    for i in range(1, 5):
-        if not np.array_equal(got[i], rdiag[i]):
-            raise AssertionError(f"diag: return {i} not bit-equal")
-    for key in rdiag[5]:
-        if not np.array_equal(got[5][key], rdiag[5][key]):
-            raise AssertionError(f"diag: {key} not bit-equal")
-    res["diag"] = dict(launches=dlaunches, ms_per_step=dms)
+        dms = (time.perf_counter() - t0) / T * 1e3
+        dlaunches = {n: c for n, c in read_launches().items() if c}
+        want = {"halo_exchange": groups * (3 + 2 * T),
+                "ring_trigger_stacked": mesh.size * T,
+                dist_kernel(): mesh.size * T + 1}      # + the ring probe
+        if dlaunches != want:
+            raise AssertionError(f"{what} launches {dlaunches}, want {want}")
+        if got[0] != rdiag[0]:
+            raise AssertionError(f"{what}: tt differs")
+        for i in range(1, 5):
+            if not np.array_equal(got[i], rdiag[i]):
+                raise AssertionError(f"{what}: return {i} not bit-equal")
+        for key in rdiag[5]:
+            if not np.array_equal(got[5][key], rdiag[5][key]):
+                raise AssertionError(f"{what}: {key} not bit-equal")
+        res[what] = dict(launches=dlaunches, ms_per_step=dms)
 
     ref = np.load(os.path.join(tmp, "driver_ref.npz"))
     rank_driver(conf, res, "driver", ref, list(range(DRIVER_DAYS)))
@@ -2882,7 +3030,12 @@ def phase_multiprocess(out):
     in each rank; the ranks hold ``DistributedRunner`` (B6 + B3 + B1),
     ``diag(mesh='2x4')`` and the batch driver bit-equal to them, only
     rank 0 writing files; a relaunch resumes from the first launch's
-    checkpoint.  Each rank counts its own launches."""
+    checkpoint.  Each rank also holds its block over MP_GROUPS groups of
+    the card, as a JAX process holds several devices
+    (:func:`rank_groups`: the runner on the 2 x 4 and 4 x 2 global meshes
+    bit-equal to one process and to one group a rank, B6's process edges
+    over the groups timed; ``diag`` over the groups).  Each rank counts
+    its own launches."""
     import shutil
     import tempfile
 
@@ -2902,12 +3055,37 @@ def phase_multiprocess(out):
         resume_s = time.perf_counter() - t0
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    for part in ("runner", "diag", "driver"):
+    for part in ("runner", "diag", "diag_groups", "driver"):
         log(f"# multiprocess {part} ({MP_RANKS} ranks over gloo on one card, "
             f"global mesh {SHARD_MESH}): " + "; ".join(
                 f"rank {res['rank']} {res[part]['ms_per_step']:.3f} ms/step, "
                 f"launches {res[part]['launches']}" for res in run)
             + "; bit-equal to one process")
+    smi = nvidia_smi()
+    for shape in MP_GROUP_MESHES:
+        log(f"# multiprocess groups ({MP_RANKS} ranks over gloo on one card "
+            f"[{smi}], global mesh {shape}, each rank's "
+            f"{run[0][f'groups_{shape}']['groups']['local_mesh']} block "
+            f"over {MP_GROUPS} groups of the card, T={SHARD_STEPS}): "
+            + "; ".join(
+                f"rank {res['rank']} groups {g['groups']['ms_per_step']:.3f}"
+                f" ms/step (B6 launches "
+                f"{g['groups']['launches']['halo_exchange']}), one group a "
+                f"rank {g['one_group']['ms_per_step']:.3f} (B6 launches "
+                f"{g['one_group']['launches']['halo_exchange']})"
+                for res in run for g in (res[f"groups_{shape}"],))
+            + "; bit-equal to one process and to one group a rank")
+    for res in run:
+        t = res["b6_process_edges"]
+        log(f"# multiprocess B6 process edges over {t['groups']} groups, "
+            f"rank {res['rank']} [{t['smi']}], theta's NN={t['nn']} exchange "
+            f"of its 1 x 4 block of the 2 x 4 global025 mesh: bit-equal to "
+            f"plain, to the exchange with the trade and to one group a rank; "
+            f"launches alone {fmt_timing(t)}; with the trade over gloo "
+            f"{t['trade_call_ms'] * 1e3:.1f} us a call (the trade alone, "
+            f"exchange_edges, {t['edges_call_ms'] * 1e3:.1f} us), bound "
+            f"{t['trade_bound_ms'] * 1e3:.2f} us ({t['host_link_bytes']} "
+            f"bytes over the host link at {PEAK_HOST_LINK / 1e9:g} GB/s)")
     log(f"# multiprocess resume: " + "; ".join(
         f"rank {res['rank']} wrote {res['resume']['files']} file(s), tt "
         f"{res['resume']['tt']}" for res in resume)
@@ -2968,7 +3146,8 @@ def main():
     # fraction, modelled taps) stay in the log lines above
     keys = ("max_abs_err", "device_ms", "call_ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms", "library", "nn", "k", "hybrid_ms",
-            "groups", "cards", "peer_path", "group_device_ms")
+            "groups", "cards", "peer_path", "group_device_ms",
+            "trade_call_ms", "edges_call_ms", "trade_bound_ms")
     kernels = []
 
     def dist_row(name, impl):
@@ -2997,7 +3176,9 @@ def main():
              per_kernel("ring_thc"), coupling["b5_launches"],
              "standalone op on the coupled steps"),
             ("halo_exchange", "halo_exchange.cu", "halo_kernel.py:183",
-             {**b6, "multicard": multicard["b6"]},
+             {**b6, "multicard": multicard["b6"],
+              "multiprocess_groups": multiprocess["run"][0][
+                  "b6_process_edges"]},
              sharded["launches"]["overlap"]["halo_exchange"],
              f"sharded: ShardedPipeline.run on {SHARD_MESH}, overlapped"),
             ("ring_trigger_stacked_large", "ring_trigger.cu",

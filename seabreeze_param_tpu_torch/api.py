@@ -22,9 +22,12 @@ reference, the sea-level temperature t0.
 In a multi-process launch (a process group of more than one rank,
 ``parallel.distributed.initialize``) every call runs the decomposed run
 over all processes, as the JAX package's does: ``mesh`` then fixes only
-the global mesh shape (default ``(world, 1)``), each process reads only
-its own rows of lazy netCDF handles, and every process returns the global
-fields, gathered over the process group.
+the global mesh shape (default ``(world, 1)``, or over a device list of
+``n`` entries ``(world * py, n // py)``, ``parallel.distributed.
+multihost_shape``), each process's block lies over its ``device`` (one
+device, or a list: one group of shards per entry), each process reads
+only its own rows of lazy netCDF handles, and every process returns the
+global fields, gathered over the process group.
 """
 from __future__ import annotations
 
@@ -112,23 +115,28 @@ def needed_ring_nn(pipe: TriggerPipeline, cdist0) -> int:
                    + params.ring_search_margin))
 
 
-def _run_multihost(pipe, mesh, key, state, t, u, v, lsm, z, std, pres, ci,
-                   single):
+def _run_multihost(pipe, mesh, devices, key, state, t, u, v, lsm, z, std,
+                   pres, ci, single):
     """The multi-process run (the reference's decomposed MPI run,
     ``UM/vn10.7/sea_breeze_diag.F90:408-410``): a
     :class:`parallel.distributed.DistributedRunner` over this process's
-    block of the global mesh, fed this process's rows only (``t``, ``u``,
-    ``v`` and ``ci`` may be lazy netCDF handles, read over those rows),
-    its outputs gathered back to the global grid on every process."""
+    block of the global mesh, laid over ``devices`` (a list: one group of
+    shards per entry; else the pipeline's device), fed this process's rows
+    only (``t``, ``u``, ``v`` and ``ci`` may be lazy netCDF handles, read
+    over those rows), its outputs gathered back to the global grid on every
+    process."""
     from .parallel import distributed as pdist
     from .parallel.mesh import ShardMesh, parse_shape
     from .parallel.sharded import ShardedPipeline
     shape = (mesh.global_shape if isinstance(mesh, ShardMesh)
              else parse_shape(mesh))
+    devices = (list(devices) if isinstance(devices, (list, tuple))
+               else [pipe.device])
     runner = _cached_pipeline(
-        key + ("multihost", pdist.world_size(), shape),
+        key + ("multihost", pdist.world_size(), shape,
+               tuple(map(str, devices))),
         lambda: pdist.DistributedRunner(ShardedPipeline(
-            pipe, pdist.make_multihost_mesh(shape, device=pipe.device))))
+            pipe, pdist.make_multihost_mesh(shape, device=devices))))
     lo, hi = runner.row_lo, min(runner.row_hi, runner.sp.nlat_real)
 
     def slab(a, lead_t=False):
@@ -266,8 +274,9 @@ def diag(tt, lsm, z, std, lon, lat, pres, *args, **kwargs):
                                             use_kernels=use_kernels))
 
     if multihost:
-        final, outs = _run_multihost(pipe, mesh, base_key + (ring_nn,), state,
-                                     t, u, v, lsm, z, std, pres, ci, single)
+        final, outs = _run_multihost(pipe, mesh, mesh_devices,
+                                     base_key + (ring_nn,), state, t, u, v,
+                                     lsm, z, std, pres, ci, single)
     else:
         u = np.asarray(u[...], np.float32)
         v = np.asarray(v[...], np.float32)

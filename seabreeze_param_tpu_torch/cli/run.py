@@ -183,11 +183,14 @@ Options:
                        split evenly over the cards (default: no
                        decomposition).  In a multi-process launch
                        (WORLD_SIZE > 1, e.g. torchrun) the global mesh over
-                       all processes, one card each, whose rows split
-                       evenly over them (default: one row per process)
+                       all processes, whose rows split evenly over them,
+                       each process's block over its --device (default: one
+                       row per process and device; over a list of n
+                       devices, near-square n per process)
     device           : torch device of the run (default: the current card,
                        and for --mesh every visible card); a comma-separated
-                       list, e.g. cuda:0,cuda:1, lays the mesh over those
+                       list, e.g. cuda:0,cuda:1, lays the mesh (under
+                       torchrun each process's block of it) over those
                        devices, one group of shards per entry (an entry may
                        repeat: several groups on one card)
     use_kernels      : false runs the plain torch path instead of the

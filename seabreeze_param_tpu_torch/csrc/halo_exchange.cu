@@ -227,7 +227,10 @@ int resident_blocks() {
 // src: host array of the S = py * px shards' device pointers; dst: of
 // the destination blocks of shards [s0, s1), the launch's group (dst[0]
 // is shard s0's); top, bot: the device strips (c, hy, px * w) of a process
-// edge, or null where the edge is global (the fill).  Launches on the
+// edge on the launch's card, or null where the edge is global (the fill) or
+// no shard of [s0, s1) lies on the block's first (top) or last (bot) mesh
+// row; shard s reads the strip at its own mesh column's offset, (s % px) *
+// w, whichever group it is in.  Launches on the
 // current device, which holds the destination blocks.  Returns
 // cudaGetLastError(), or cudaErrorInvalidValue for more than kMaxShards
 // shards, an empty or out-of-mesh range, or a halo wider than the shard.

@@ -9,7 +9,7 @@ import ctypes
 
 import torch
 
-from ...parallel.halo import check_exchange, halo_exchange_plain
+from ...parallel.halo import check_exchange, group_edges, halo_exchange_plain
 from ...parallel.mesh import fork, group_streams, join, source_groups
 from . import _build
 
@@ -35,17 +35,21 @@ def _enable_peer(dev: torch.device, peer: torch.device):
 
 def halo_exchange_cuda(local, mesh, hy: int, hx: int, *,
                        lat_fill: str = "clamp", exact_lon: bool = True,
-                       edges=(None, None)):
+                       edges=None):
     """The padded ``(..., h + 2*hy, w + 2*hx)`` block of every shard.
 
     ``local`` — the ``mesh.size`` shards, one shape ``(h, w)`` or
     ``(C, h, w)``, float32, contiguous, each on its group's device.  Lon
     is periodic; the global lat edges take ``lat_fill`` (``'clamp'`` or
     ``'zero'``); ``exact_lon`` applies the quirky seam patches.
-    ``edges`` — ``(top, bot)``: for a process edge of a multi-process run,
-    the neighbour's boundary rows ``(..., hy, px*w)`` that the rows beyond
-    it take instead of the fill (``parallel.distributed.exchange_edges``);
-    None at a global edge.  Returns a list of new tensors, each on its
+    ``edges`` — ``{device: (top, bot)}``: for a process edge of a
+    multi-process run, the neighbour's boundary rows ``(..., hy, px*w)``
+    that the rows beyond it take instead of the fill, one copy on each card
+    whose groups read it (``parallel.distributed.exchange_edges``); None at
+    a global edge.  Each group's launch takes the copies on its own card,
+    and none where its shards do not touch the block's first or last mesh
+    row (``parallel.halo.group_edges``); an edge a group reads with no copy
+    on its card is refused.  Returns a list of new tensors, each on its
     shard's device.
 
     CUDA tensors: one launch of B6 per group of the mesh, each for every
@@ -75,14 +79,18 @@ def halo_exchange_cuda(local, mesh, hy: int, hx: int, *,
     for s, x in enumerate(local):
         _build.require(x, f"shard {s}", shape, mesh.device_of(s))
     h, w = shape[-2:]
-    for name, e in zip(("top", "bot"), edges):
-        if e is not None:
-            _build.require(e, f"{name} edge", shape[:-2] + (hy, mesh.px * w),
-                           mesh.device)
+    per_group = [group_edges(edges, mesh, g) for g in range(mesh.groups)]
+    for g, pair in enumerate(per_group):
+        for name, e in zip(("top", "bot"), pair):
+            if e is not None:
+                _build.require(e, f"group {g}'s {name} edge",
+                               shape[:-2] + (hy, mesh.px * w),
+                               mesh.devices[g])
     args = (hy, hx, int(lat_fill == "zero"), int(bool(exact_lon)))
     src = (ctypes.c_void_p * mesh.size)(*(x.data_ptr() for x in local))
     if mesh.groups == 1:
-        return _launch(src, mesh, shape, args, edges, mesh.group_shards(0))
+        return _launch(src, mesh, shape, args, per_group[0],
+                       mesh.group_shards(0))
     streams = group_streams(mesh)
     for g, dev in enumerate(mesh.devices):
         for j in source_groups(mesh, g):
@@ -96,7 +104,7 @@ def halo_exchange_cuda(local, mesh, hy: int, hx: int, *,
             if j != g:
                 st.wait_event(ready[j])
         with torch.cuda.stream(st):
-            out += _launch(src, mesh, shape, args, edges,
+            out += _launch(src, mesh, shape, args, per_group[g],
                            mesh.group_shards(g))
     done = [st.record_event() for st in streams]
     for g in range(mesh.groups):
@@ -109,7 +117,8 @@ def halo_exchange_cuda(local, mesh, hy: int, hx: int, *,
 
 def _launch(src, mesh, shape, args, edges, shards: range):
     """One launch of B6 writing the padded blocks of ``shards`` (one
-    group's) on their device's current stream; returns them."""
+    group's) on their device's current stream, ``edges`` the group's
+    ``(top, bot)`` strips on that device; returns them."""
     hy, hx = args[:2]
     h, w = shape[-2:]
     c = shape[0] if len(shape) == 3 else 1

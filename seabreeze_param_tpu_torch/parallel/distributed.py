@@ -17,9 +17,13 @@ processes, and each process runs its block with the same
 
 The process group uses the ``gloo`` backend, so every tensor it carries is
 staged through host memory (pinned where it comes from a card).  NCCL
-would not put two ranks on one GPU, and a rank's device is
+would not put two ranks on one GPU, and a rank's default device is
 ``cuda:{LOCAL_RANK % device_count}``: on a one-card machine every rank
-shares it.
+shares it.  A rank may hold several devices, as a JAX process holds
+several: :func:`make_multihost_mesh` then lays its block over a device
+list, one group of shards per entry (``parallel.mesh``), and a process
+edge's rows are sent from, and delivered to, the cards of the groups
+that hold the block's edge rows.
 
 Usage (``torchrun --nproc_per_node 2 ...`` sets the variables; without
 them everything below is the single-process run)::
@@ -27,6 +31,8 @@ them everything below is the single-process run)::
     from seabreeze_param_tpu_torch.parallel import distributed as dist
     dist.initialize()                  # no-op unless WORLD_SIZE > 1
     mesh = dist.make_multihost_mesh()  # (world, 1), mesh rows by process
+    # or each rank's block over two cards, global mesh (world, 2):
+    # mesh = dist.make_multihost_mesh(device=["cuda:0", "cuda:1"])
     runner = dist.DistributedRunner(ShardedPipeline(pipe, mesh))
     final, outs = runner.run(state_local, theta_local, ..., lsm_local, ...)
 """
@@ -40,7 +46,8 @@ import torch
 import torch.distributed as dist
 
 from ..core.state import TriggerState
-from .mesh import ShardMesh, _one_device, parse_shape
+from .mesh import (ShardMesh, _near_square, _one_device, _resolve, fork,
+                   join, parse_shape)
 from .sharded import OUT_KEYS, ShardedPipeline, take_rows
 
 
@@ -96,22 +103,48 @@ def barrier() -> None:
         dist.barrier()
 
 
-def make_multihost_mesh(shape=None, device=None) -> ShardMesh:
-    """This process's block of a global ``(py, px)`` mesh: ``py / world``
-    contiguous mesh rows at full longitude, on ``device`` (default: the
-    current card), one card per process: the block is one group
-    (``parallel.mesh``), where JAX's multi-host meshes may hold several
-    devices a process.  ``shape`` — ``None``/``'auto'``: ``(world, 1)``,
-    the JAX package's rule with one device per process; ``'PYxPX'`` or a
-    tuple.  The lat axis must split evenly over the processes."""
-    world = world_size()
-    dims = parse_shape(shape) or (world, 1)
+def multihost_shape(world: int, per: int, shape=None) -> tuple[int, int]:
+    """The global mesh shape of ``world`` processes of ``per`` devices each,
+    by the JAX package's ``make_multihost_mesh``: ``None``/``'auto'`` is
+    ``(world * py, per // py)``, ``(py, per // py)`` the near-square
+    factorisation of ``per``; ``'PYxPX'`` or a tuple as given.  The lat
+    axis must split evenly over the processes, and each process's block of
+    ``(y / world) * x`` shards evenly over its ``per`` devices."""
+    dims = parse_shape(shape)
+    if dims is None:
+        py, px = _near_square(per)
+        dims = (world * py, px)
     if dims[0] % world:
         # DistributedRunner feeds each process a contiguous row block
         raise ValueError(f"mesh shape {dims} cannot split y={dims[0]} "
                          f"contiguously over {world} processes")
-    return ShardMesh(dims[0] // world, dims[1], _one_device(device), rank(),
-                     world)
+    block = dims[0] // world * dims[1]
+    if block % per:
+        raise ValueError(f"mesh shape {dims}: {block} shards do not split "
+                         f"evenly over {per} devices")
+    return dims
+
+
+def make_multihost_mesh(shape=None, device=None) -> ShardMesh:
+    """This process's block of a global ``(py, px)`` mesh: ``py / world``
+    contiguous mesh rows at full longitude.  ``device`` — None: the current
+    card (:func:`local_device` after :func:`initialize`), one group; one
+    device: one group there; a list: one group of shards per entry, as
+    ``make_mesh(shape, device=[...])`` (an entry named several times gives
+    several groups on one card), as the JAX package's multi-host mesh
+    holds several devices a process.  ``shape`` — ``None``/``'auto'``:
+    :func:`multihost_shape`'s default, ``(world, 1)`` for one device;
+    ``'PYxPX'`` or a tuple."""
+    world = world_size()
+    if isinstance(device, (list, tuple)):
+        devices = [_resolve(d) for d in device]
+        if not devices:
+            raise ValueError("make_multihost_mesh: an empty device list")
+    else:
+        devices = [_one_device(device)]
+    dims = multihost_shape(world, len(devices), shape)
+    return ShardMesh(dims[0] // world, dims[1], devices[0], rank(), world,
+                     devices=tuple(devices))
 
 
 def _host(t):
@@ -153,36 +186,72 @@ def gather_rows(local, rows: int, nlat: int):
     return g[:nlat].movedim(0, -2).contiguous()
 
 
-def exchange_edges(local, mesh: ShardMesh, hy: int):
+def _host_rows(local, mesh: ShardMesh, iy: int, rows: slice):
+    """Rows ``rows`` of mesh row ``iy`` at full width, ``(..., r, px*w)``,
+    in one host buffer (pinned where the shards lie on cards), assembled
+    group by group: each group's run of the row's shards joined on its own
+    device and copied into the buffer's columns."""
+    px = mesh.px
+    first = local[iy * px][..., rows, :]
+    w = first.shape[-1]
+    buf = _host_empty(first.shape[:-1] + (px * w,), first)
+    for g in range(mesh.groups):
+        run = mesh.group_shards(g)
+        lo, hi = max(run.start, iy * px), min(run.stop, (iy + 1) * px)
+        if lo < hi:
+            buf[..., (lo - iy * px) * w:(hi - iy * px) * w].copy_(torch.cat(
+                [local[s][..., rows, :] for s in range(lo, hi)], dim=-1))
+    return buf
+
+
+def _row_devices(mesh: ShardMesh, iy: int) -> list:
+    """The devices of the groups that hold a shard of mesh row ``iy``, each
+    once, in group order."""
+    return list(dict.fromkeys(mesh.device_of(iy * mesh.px + ix)
+                              for ix in range(mesh.px)))
+
+
+def exchange_edges(local, mesh: ShardMesh, hy: int) -> dict:
     """Trade boundary rows with the neighbouring processes for a halo of
     ``hy`` rows: this block's first ``hy`` rows go to rank - 1 and its last
     ``hy`` rows to rank + 1, each at full width (the mesh row's shards side
-    by side).  Returns ``(top, bot)`` on the shards' device: the rows of
-    rank - 1 that lie above this block and those of rank + 1 below it,
-    ``(..., hy, px*w)``, None at a global edge (or for hy = 0)."""
+    by side, each read on its own device).  Returns ``{device: (top,
+    bot)}``: the rows of rank - 1 that lie above this block, delivered to
+    every card whose groups hold a shard of the block's first mesh row,
+    and those of rank + 1 below it, to every card holding a shard of its
+    last, ``(..., hy, px*w)`` (a group reads the whole strip: its corners
+    take the columns beside its own); None at a global edge, and ``{}``
+    with one process or hy = 0.
+
+    On cards the shards may have been written on their groups' streams
+    (``parallel.mesh.on_group``): the reads wait on them (``join``), and
+    the groups' streams wait on the delivering copies (``fork``)."""
     if mesh.world == 1 or hy == 0:
-        return None, None
-    px, h = mesh.px, local[0].shape[-2]
-    last = (mesh.py - 1) * px
+        return {}
+    h = local[0].shape[-2]
+    join(mesh)
     sends, recvs = {}, {}
     if mesh.rank > 0:
-        sends[mesh.rank - 1] = torch.cat(
-            [local[ix][..., :hy, :] for ix in range(px)], dim=-1)
+        sends[mesh.rank - 1] = _host_rows(local, mesh, 0, slice(0, hy))
     if mesh.rank < mesh.world - 1:
-        sends[mesh.rank + 1] = torch.cat(
-            [local[last + ix][..., h - hy:, :] for ix in range(px)], dim=-1)
+        sends[mesh.rank + 1] = _host_rows(local, mesh, mesh.py - 1,
+                                          slice(h - hy, h))
     reqs = []
-    for peer, rows in sends.items():
-        host = _host(rows)
-        recvs[peer] = _host_empty(host.shape, rows)
-        reqs.append((host, dist.isend(host, peer)))
-        reqs.append((recvs[peer], dist.irecv(recvs[peer], peer)))
-    for _, req in reqs:
+    for peer, host in sends.items():
+        recvs[peer] = _host_empty(host.shape, local[0])
+        reqs.append(dist.isend(host, peer))
+        reqs.append(dist.irecv(recvs[peer], peer))
+    for req in reqs:
         req.wait()
-    dev = local[0].device
-    return tuple(None if peer not in recvs
-                 else recvs[peer].to(dev, non_blocking=True)
-                 for peer in (mesh.rank - 1, mesh.rank + 1))
+    edges = {}
+    for side, (peer, iy) in enumerate(((mesh.rank - 1, 0),
+                                       (mesh.rank + 1, mesh.py - 1))):
+        if peer in recvs:
+            for dev in _row_devices(mesh, iy):
+                edges.setdefault(dev, [None, None])[side] = recvs[peer].to(
+                    dev, non_blocking=True)
+    fork(mesh)
+    return {dev: tuple(pair) for dev, pair in edges.items()}
 
 
 @dataclasses.dataclass

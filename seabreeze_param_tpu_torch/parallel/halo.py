@@ -40,10 +40,12 @@ A process's block of a multi-process mesh (``ShardMesh.world`` > 1) keeps
 the fills only at the global edges (the top of rank 0, the bottom of the
 last rank).  At a process edge ``halo_start`` first trades boundary rows
 with the neighbouring process (``parallel.distributed.exchange_edges``:
-``hy`` rows at full width, through host buffers over gloo), and the rows
-beyond that edge take the neighbour's rows in place of the fill, on both
-backends; the lon ring and the seam patches then come out as on one
-process.
+``hy`` rows at full width, through host buffers over gloo, delivered to
+each card whose groups hold the block's first or last mesh row), and the
+rows beyond that edge take the neighbour's rows in place of the fill, on
+both backends, each group reading the copy on its own card
+(:func:`group_edges`); the lon ring and the seam patches then come out as
+on one process.
 """
 from __future__ import annotations
 
@@ -57,28 +59,52 @@ LAT_FILLS = ("clamp", "zero")
 BACKENDS = ("kernel", "plain")
 
 
-def halo_parts(local, mesh: ShardMesh, hy: int, hx: int,
-               edges=(None, None)):
+def group_edges(edges, mesh: ShardMesh, g: int):
+    """The process-edge strips group ``g``'s shards read, ``(top, bot)``:
+    from ``edges`` (``{device: (top, bot)}``, as
+    ``parallel.distributed.exchange_edges`` returns; None or ``{}``: no
+    process edge) the copies on ``g``'s device, the top where a shard of
+    ``g`` lies on the block's first mesh row and the bottom where one lies
+    on its last; None at a global edge or where ``g`` has no such shard.
+    A strip ``g`` reads that has no copy on its device is refused."""
+    edges = edges or {}
+    dev = mesh.devices[g]
+    shards = mesh.group_shards(g)
+    reads = (mesh.coords(shards.start)[0] == 0,
+             mesh.coords(shards.stop - 1)[0] == mesh.py - 1)
+    mine = edges.get(dev, (None, None))
+    out = []
+    for side, read in enumerate(reads):
+        if read and mine[side] is None and any(
+                pair[side] is not None for pair in edges.values()):
+            raise ValueError(f"group {g} on {dev} reads the "
+                             f"{('top', 'bottom')[side]} process edge, which "
+                             f"has no copy on its device")
+        out.append(mine[side] if read else None)
+    return tuple(out)
+
+
+def halo_parts(local, mesh: ShardMesh, hy: int, hx: int, edges=None):
     """Per shard, the dict of its received strips and corners (keys
     ``left right top bot tl tr bl br``; ``None`` where the bounded lat axis
     has no neighbour).  Corners come straight from the diagonal neighbour.
-    ``edges`` — ``(top, bot)``: the neighbour process's boundary rows
-    ``(..., hy, px*w)`` beyond this block's first or last mesh row, which
-    serve as that row's neighbours; None at a global edge."""
+    ``edges`` — ``{device: (top, bot)}``: the neighbour process's boundary
+    rows ``(..., hy, px*w)`` beyond this block's first or last mesh row,
+    which serve as that row's neighbours, each shard taking the copy on
+    its group's device (:func:`group_edges`); None at a global edge."""
     py, px = mesh.shape
     h, w = local[0].shape[-2:]
-    top, bot = edges
+    per_group = [group_edges(edges, mesh, g) for g in range(mesh.groups)]
 
-    def at(iy, ix, rows):
+    def cut(s, iy, ix, rows, cols):
+        """Shard ``s``'s part from the shard at (iy, ix), or from the
+        process edge beyond the block that its group reads."""
         ix %= px
         if 0 <= iy < py:
-            return local[iy * px + ix][..., rows, :]
-        edge = top if iy < 0 else bot
-        return None if edge is None else edge[..., ix * w:(ix + 1) * w]
-
-    def cut(iy, ix, rows, cols):
-        t = at(iy, ix, rows)
-        return None if t is None else t[..., cols]
+            return local[iy * px + ix][..., rows, cols]
+        edge = per_group[mesh.group_of(s)][0 if iy < 0 else 1]
+        return (None if edge is None
+                else edge[..., ix * w:(ix + 1) * w][..., cols])
 
     top_r, bot_r = slice(h - hy, h), slice(0, hy)
     left_c, right_c, all_c = slice(w - hx, w), slice(0, hx), slice(0, w)
@@ -87,16 +113,16 @@ def halo_parts(local, mesh: ShardMesh, hy: int, hx: int,
         iy, ix = mesh.coords(s)
         p = {}
         if hx:
-            p["left"] = cut(iy, ix - 1, slice(0, h), left_c)
-            p["right"] = cut(iy, ix + 1, slice(0, h), right_c)
+            p["left"] = cut(s, iy, ix - 1, slice(0, h), left_c)
+            p["right"] = cut(s, iy, ix + 1, slice(0, h), right_c)
         if hy:
-            p["top"] = cut(iy - 1, ix, top_r, all_c)
-            p["bot"] = cut(iy + 1, ix, bot_r, all_c)
+            p["top"] = cut(s, iy - 1, ix, top_r, all_c)
+            p["bot"] = cut(s, iy + 1, ix, bot_r, all_c)
         if hy and hx:
-            p["tl"] = cut(iy - 1, ix - 1, top_r, left_c)
-            p["tr"] = cut(iy - 1, ix + 1, top_r, right_c)
-            p["bl"] = cut(iy + 1, ix - 1, bot_r, left_c)
-            p["br"] = cut(iy + 1, ix + 1, bot_r, right_c)
+            p["tl"] = cut(s, iy - 1, ix - 1, top_r, left_c)
+            p["tr"] = cut(s, iy - 1, ix + 1, top_r, right_c)
+            p["bl"] = cut(s, iy + 1, ix - 1, bot_r, left_c)
+            p["br"] = cut(s, iy + 1, ix + 1, bot_r, right_c)
         if mesh.groups > 1:
             dev = local[s].device
             p = {key: None if t is None else t.to(dev)
@@ -147,7 +173,7 @@ def check_exchange(local, mesh: ShardMesh, hy: int, hx: int, lat_fill):
 
 def halo_exchange_plain(local, mesh: ShardMesh, hy: int, hx: int, *,
                         lat_fill: str = "clamp", exact_lon: bool = True,
-                        edges=(None, None)):
+                        edges=None):
     """Kernel B6's plain version: the padded (..., h+2hy, w+2hx) block of
     every shard, from :func:`halo_parts` and ``torch.cat``; ``edges`` as
     in :func:`halo_parts`."""
@@ -218,7 +244,7 @@ def halo_start(local, mesh: ShardMesh, hy: int, hx: int, *,
     docstring)."""
     backend = resolve_backend(backend)
     check_exchange(local, mesh, hy, hx, lat_fill)
-    edges = (None, None)
+    edges = None
     if mesh.world > 1:
         from .distributed import exchange_edges
         edges = exchange_edges(local, mesh, hy)

@@ -25,10 +25,13 @@ current streams after the groups' work.  A one-group mesh uses the caller's
 current stream and none of this.
 
 In a multi-process run (``parallel.distributed``) each of ``world``
-processes holds a :class:`ShardMesh` of its own on one card: ``py``
-contiguous rows of a global ``(py * world, px)`` mesh at full longitude,
-starting at global mesh row ``rank * py``; the shard list, :func:`split`
-and :func:`gather` then cover that process's row block.
+processes holds a :class:`ShardMesh` of its own: ``py`` contiguous rows of
+a global ``(py * world, px)`` mesh at full longitude, starting at global
+mesh row ``rank * py``, over that process's devices, split into groups as
+above (one group on one card, or several, as the JAX package's multi-host
+mesh holds several devices a process); the shard list, :func:`split` and
+:func:`gather` then cover that process's row block.  Rank order, then
+shard order within a block, is the global mesh's row-major shard order.
 """
 from __future__ import annotations
 
@@ -46,8 +49,8 @@ class ShardMesh:
     """``py`` lat shards by ``px`` lon shards over ``devices``, one entry
     per group of ``size / groups`` contiguous shards (default: one group,
     every shard on ``device``): the whole mesh, or with ``world`` > 1
-    process ``rank``'s rows of a global mesh of ``py * world`` rows, in one
-    group.  ``device`` is the first group's device, where gathers land."""
+    process ``rank``'s rows of a global mesh of ``py * world`` rows.
+    ``device`` is the first group's device, where gathers land."""
 
     py: int
     px: int
@@ -67,9 +70,6 @@ class ShardMesh:
         if len({d.type for d in devices}) > 1:
             raise ValueError(f"a mesh over {[str(d) for d in devices]} "
                              f"mixes device types")
-        if self.world > 1 and len(devices) > 1:
-            raise ValueError("a process's block of a multi-process mesh is "
-                             "one group")
 
     @property
     def shape(self) -> tuple[int, int]:

@@ -45,11 +45,12 @@ checked on the global grid and k, as in the JAX package, and each shard's
 distance takes its ``half_dlam``.
 
 Over a multi-process mesh (``parallel.distributed``) each process runs its
-own block of mesh rows (:meth:`ShardedPipeline.run_block`): the halo-width
-guard and the choice of structure stay per shard, the lat padding, the
-tables and the row offsets come from the global grid, a process edge's
-halo rows from the neighbouring process, and the sigmoid's statistics are
-gathered over every process.
+own block of mesh rows (:meth:`ShardedPipeline.run_block`), over one group
+or several, as on one process: the halo-width guard and the choice of
+structure stay per shard, the lat padding, the tables and the row offsets
+come from the global grid, a process edge's halo rows from the
+neighbouring process (delivered to the cards of the groups that read
+them), and the sigmoid's statistics are gathered over every process.
 """
 from __future__ import annotations
 

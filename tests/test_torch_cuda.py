@@ -1253,6 +1253,87 @@ def test_sharded_groups_on_one_card_bit_equal_repeated(groups, dev):
                   reps=20)
 
 
+#: (global mesh, processes, rank, groups of the rank's block) of the
+#: grouped exchanges with process edges: a 2 x 3 block in 2 groups (a
+#: mesh row each), in 3 (two shards each, the middle group across both
+#: rows, so it reads both edges) and in 6; a 1 x 4 block, one mesh row
+#: across 2 and 4 groups (each reads both edges).
+GROUPED_EDGES = [((6, 3), 3, 1, 2), ((6, 3), 3, 1, 3), ((6, 3), 3, 0, 6),
+                 ((6, 3), 3, 2, 3), ((3, 4), 3, 1, 2), ((3, 4), 3, 1, 4)]
+
+
+def _edge_exchanges(field, global_shape, world, rank, devices, kw):
+    """B6 over ``rank``'s block of ``global_shape`` split over ``world``
+    processes, the block over ``devices``, fed the process edges as
+    ``exchange_edges`` delivers them: at 1-wide, uneven, one-sided and
+    full-shard widths, one launch per group, each held bit-equal to its
+    plain version, to one group a process and to the exchange of the whole
+    mesh on one process."""
+    from tests.test_torch_multihost import process_block
+    py, px = global_shape
+    h, w = field.shape[-2] // py, field.shape[-1] // px
+    one = make_mesh(global_shape, devices[0])
+    for hy, hx in ((1, 1), (3, 2), (0, 2), (2, 0),
+                   (h, w - 1 if kw["exact_lon"] else w)):
+        local, mesh, edges = process_block(field, global_shape, world, rank,
+                                           hy, devices[0], devices)
+        flat, fmesh, fedges = process_block(field, global_shape, world,
+                                            rank, hy, devices[0])
+        assert mesh.groups == len(devices) and fmesh.groups == 1
+        before = halo_exchange_cuda.launches
+        got = halo_exchange_cuda(local, mesh, hy, hx, edges=edges, **kw)
+        assert halo_exchange_cuda.launches == before + mesh.groups
+        plain = halo_exchange_plain(local, mesh, hy, hx, edges=edges, **kw)
+        ref = halo_exchange_cuda(flat, fmesh, hy, hx, edges=fedges, **kw)
+        whole = halo_exchange_plain(split(field, one), one, hy, hx, **kw)[
+            rank * mesh.size:(rank + 1) * mesh.size]
+        for s, (g, p, f, r) in enumerate(zip(got, plain, ref, whole)):
+            assert g.device == mesh.device_of(s)
+            torch.testing.assert_close(g, p, rtol=0, atol=0)
+            torch.testing.assert_close(g.to(f.device), f, rtol=0, atol=0)
+            torch.testing.assert_close(g.to(r.device), r, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", range(len(GROUPED_EDGES)))
+@pytest.mark.parametrize("lat_fill,exact_lon", HALO_FILLS)
+@pytest.mark.parametrize("channels", [1, 2])
+def test_halo_kernel_process_edges_groups_bit_equal_to_plain(
+        case, lat_fill, exact_lon, channels, dev):
+    """B6 over a process's block in 2-6 groups of one card, each group's
+    launch given the process edges it reads (none where its shards do not
+    touch the block's first or last mesh row), 15 columns a shard so rows
+    start at every offset modulo 16 bytes (:func:`_edge_exchanges`)."""
+    global_shape, world, rank, groups = GROUPED_EDGES[case]
+    shape = (72, 15 * global_shape[1])
+    if channels > 1:
+        shape = (channels,) + shape
+    field = torch.as_tensor(np.random.default_rng(case).standard_normal(
+        shape).astype(np.float32), device=dev)
+    _edge_exchanges(field, global_shape, world, rank, [dev] * groups,
+                    dict(lat_fill=lat_fill, exact_lon=exact_lon))
+
+
+@pytest.mark.cuda
+def test_halo_kernel_refuses_process_edges_off_the_groups_card(dev):
+    """A group whose process edge has no copy on its card, or whose copy
+    lies on another device, is refused: B6 never reads an edge from
+    another card and never falls back to the plain version."""
+    from tests.test_torch_multihost import process_block
+    field = torch.as_tensor(np.random.default_rng(1).standard_normal(
+        (72, 45)).astype(np.float32), device=dev)
+    local, mesh, edges = process_block(field, (6, 3), 3, 1, 2, dev,
+                                       [dev] * 2)
+    (top, bot), = edges.values()
+    cpu = torch.device("cpu")
+    with pytest.raises(ValueError, match="no copy on its device"):
+        halo_exchange_cuda(local, mesh, 2, 2,
+                           edges={cpu: (top.to(cpu), bot.to(cpu))})
+    with pytest.raises(ValueError, match="group 0's top edge: on cpu"):
+        halo_exchange_cuda(local, mesh, 2, 2,
+                           edges={mesh.device: (top.to(cpu), bot)})
+
+
 @pytest.fixture
 def two_cards(dev):
     if torch.cuda.device_count() < 2:
@@ -1291,3 +1372,19 @@ def test_sharded_across_cards_bit_equal_repeated(two_cards):
     bit-equal to the one-group mesh on the first card."""
     _grouped_runs(make_mesh((2, 2), two_cards),
                   make_mesh((2, 2), two_cards[0]), reps=20)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lat_fill,exact_lon", HALO_FILLS)
+def test_halo_kernel_process_edges_across_cards_bit_equal_to_plain(
+        lat_fill, exact_lon, two_cards):
+    """A process's block over two cards (and over four groups on them),
+    each group's launch taking the process edges' copy on its own card
+    (:func:`_edge_exchanges`): a 2 x 4 block, a mesh row on each card, and
+    a 1 x 4 block, one mesh row across both cards."""
+    kw = dict(lat_fill=lat_fill, exact_lon=exact_lon)
+    for global_shape in ((6, 4), (3, 4)):
+        field = torch.as_tensor(np.random.default_rng(3).standard_normal(
+            (2, 72, 60)).astype(np.float32), device=two_cards[0])
+        for devices in (two_cards, two_cards * 2):
+            _edge_exchanges(field, global_shape, 3, 1, devices, kw)

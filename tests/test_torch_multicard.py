@@ -60,9 +60,9 @@ def test_make_mesh_over_a_list(n, shape, want):
 
 def test_make_mesh_list_refusals_and_subsetting():
     """Fewer shards than entries warn (as JAX does) and take the first
-    ones; shards that do not split evenly, a list mixing device types, an
-    empty list and a multi-process block of several groups are refused; a
-    single device is the one-group mesh, as before."""
+    ones; shards that do not split evenly, a list mixing device types and
+    an empty list are refused; a multi-process block may hold several
+    groups; a single device is the one-group mesh, as before."""
     with pytest.warns(UserWarning, match="uses only 2 of 4"):
         mesh = make_mesh((1, 2), ["cpu"] * 4)
     assert mesh.groups == 2 and mesh.shape == (1, 2)
@@ -74,8 +74,8 @@ def test_make_mesh_list_refusals_and_subsetting():
         make_mesh((1, 1), [])
     with pytest.raises(ValueError, match="equal groups"):
         ShardMesh(1, 3, CPU, devices=(CPU, CPU))
-    with pytest.raises(ValueError, match="one group"):
-        ShardMesh(2, 2, CPU, rank=0, world=2, devices=(CPU, CPU))
+    block = ShardMesh(2, 2, CPU, rank=0, world=2, devices=(CPU, CPU))
+    assert block.groups == 2 and block.global_shape == (4, 2)
     one = make_mesh("2x4", "cpu")
     assert one.groups == 1 and one.devices == (CPU,)
     assert one == ShardMesh(2, 4, CPU)

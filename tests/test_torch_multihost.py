@@ -34,16 +34,17 @@ def _free_port():
     return port
 
 
-def _spawn(case, *args, nproc=2):
-    """Run ``case`` in ``nproc`` ranks; returns their outputs, after
-    asserting that each exited 0 and printed its OK line."""
+def _spawn(case, *args, nproc=2, script=__file__):
+    """Run ``case`` in ``nproc`` ranks of ``script``'s ``__main__`` (this
+    file's by default); returns their outputs, after asserting that each
+    exited 0 and printed its OK line."""
     port = _free_port()
     env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep
                + os.environ.get("PYTHONPATH", ""), MASTER_ADDR="localhost",
                MASTER_PORT=str(port), WORLD_SIZE=str(nproc),
                OMP_NUM_THREADS="2")
     procs = [subprocess.Popen(
-        [sys.executable, os.path.abspath(__file__), case,
+        [sys.executable, os.path.abspath(script), case,
          *(str(a) for a in args)],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         env=dict(env, RANK=str(r), LOCAL_RANK=str(r)))
@@ -87,25 +88,33 @@ def world(nt=2):
     return lon, lat, (lsm, z, std, p, theta, u, v, ci)
 
 
-def process_block(field, mesh_shape, world, rank, hy, device="cpu"):
+def process_block(field, mesh_shape, world, rank, hy, device="cpu",
+                  devices=None):
     """Process ``rank``'s block of a ``world``-process split of a global
-    mesh: its shards, its :class:`ShardMesh` and the ``(top, bot)`` rows
-    the neighbouring processes would send for a halo of ``hy`` rows."""
+    mesh, over ``devices`` (one group of shards per entry; default one
+    group on ``device``): its shards, each on its group's device, its
+    :class:`ShardMesh` and the edges that ``exchange_edges`` would deliver
+    for a halo of ``hy`` rows, ``{device: (top, bot)}``, the rows the
+    neighbouring processes would send, a copy on each of the block's
+    devices."""
     import torch
     from seabreeze_param_tpu_torch.parallel.mesh import ShardMesh, split
     py, px = mesh_shape
     h = field.shape[-2] // py
     local_py = py // world
-    one = ShardMesh(py, px, torch.device(device))
-    shards = split(field, one)[rank * local_py * px:
-                               (rank + 1) * local_py * px]
-    mesh = ShardMesh(local_py, px, torch.device(device), rank, world)
+    mesh = ShardMesh(local_py, px, torch.device(device), rank, world,
+                     devices=tuple(devices or (device,)))
+    one = ShardMesh(py, px, mesh.device)
+    shards = [x.to(mesh.device_of(s)) for s, x in enumerate(
+        split(field, one)[rank * local_py * px:(rank + 1) * local_py * px])]
     lo, hi = rank * local_py * h, (rank + 1) * local_py * h
     top = (field[..., lo - hy:lo, :].contiguous() if rank > 0 and hy
            else None)
     bot = (field[..., hi:hi + hy, :].contiguous() if rank < world - 1 and hy
            else None)
-    return shards, mesh, (top, bot)
+    return shards, mesh, {dev: tuple(None if e is None else e.to(dev)
+                                     for e in (top, bot))
+                          for dev in dict.fromkeys(mesh.devices)}
 
 
 def _outputs_close(got, ref, what):
