@@ -184,6 +184,9 @@ def device_ms(fn, reps=20, flush=True):
 #: memory in bytes/s, float32 outside the tensor cores in operations/s, and
 #: its host link (PCIe 5.0 x16) in bytes/s each way.
 PEAK_BYTES, PEAK_F32, PEAK_HOST_LINK = 3.35e12, 67e12, 64e9
+#: float32 additions a second: PEAK_F32 counts an FMA as two operations,
+#: and an addition issues at the FMA's rate, so half of it.
+PEAK_F32_ADD = PEAK_F32 / 2
 
 
 def timing(kernel, plain, nbytes, ops, *, library=None, library_note=None,
@@ -2556,15 +2559,23 @@ def phase_past_2047(out):
     """Ring radii past :data:`EXACT_NN`, where the float32 land count
     rounds: B1, B4 and B5 alone at :data:`PAST_NN` on a field of land cells
     all within maxdist (every cell runs to NN, latched on the rounded
-    count), each bit-equal to its plain version and timed; then ``diag`` on
-    the strip world (:func:`strip_world`, k = 2200, NN = 2204: B1 and B3's
-    large builds) against its plain path."""
+    count), each bit-equal to its plain version and timed, beside the bound
+    and the chain-work floor (``tools/ring_sweep_model.py::chain_floor``:
+    the least additions a bit-equal schedule needs for these latch radii,
+    over the float32 add rate :data:`PEAK_F32_ADD`); then ``diag`` on the strip world
+    (:func:`strip_world`, k = 2200, NN = 2204: B1's sweep build and B3's
+    large build) against its plain path; then the integral image of land
+    that every B1, B4 and B5 launch from NN = 52 on starts with
+    (``land_rows`` + ``land_cols``) alone at the strip's NN and at the 0.4
+    km world's 391, bit-equal to plain and timed.  B1's share of the
+    strip's step is read last (:func:`phase_strip_profile`)."""
     import torch
     from seabreeze_param_tpu_torch.api import diag
     from seabreeze_param_tpu_torch.core.params import Params
     from seabreeze_param_tpu_torch.ops.cuda.ring_kernel import (
-        StackedScan, ring_thc_cuda_padded, ring_trigger_cuda_padded,
-        ring_trigger_cuda_stacked)
+        StackedScan, land_image_cuda, land_image_plain, ring_thc_cuda_padded,
+        ring_trigger_cuda_padded, ring_trigger_cuda_stacked)
+    from tools.ring_sweep_model import chain_floor
     from seabreeze_param_tpu_torch.ops.ring_search import (
         ring_quantities, ring_thc_from_padded)
     from seabreeze_param_tpu_torch.ops.trigger import cadence, trigger_cells
@@ -2625,18 +2636,24 @@ def phase_past_2047(out):
         err5 = bit_equal(b5(), b5_plain(), f"NN={nn} B5")
         unit = tile_mask(cd, params.maxdist)
         _, cells, adds = ring_work(cd_pad, cd, nn, params.maxdist, unit)
+        # the least additions a bit-equal schedule needs for these latch
+        # radii: the chains each taken to the greatest order a window reads
+        floor = chain_floor(latch_radius(cd_pad, cd, nn, params.maxdist)
+                            .cpu().numpy(), nn)
+        floor_ms = floor["adds"] / PEAK_F32_ADD * 1e3
         # every tile is coastal, so the windows read the whole padded pair:
         # B1 reads it and the five other fields, and writes five
         pad_bytes = 4 * (t0_pad.numel() + cd_pad.numel())
-        res[f"nn{nn}"] = dict(max_abs_err=err1, nn=nn, **timing(
-            b1, plain, pad_bytes + 40 * cells + unit.numel(), adds,
-            library_note=none, plain_queued=True))
-        res[f"b4_nn{nn}"] = dict(max_abs_err=err4, nn=nn, **timing(
-            b4, plain, pad_bytes + 32 * h * w, adds, library_note=none,
-            plain_queued=True))
-        res[f"b5_nn{nn}"] = dict(max_abs_err=err5, nn=nn, **timing(
-            b5, b5_plain, pad_bytes + 8 * h * w, adds, library_note=none,
-            plain_queued=True))
+        for key, err, fn, ref_fn, nbytes in (
+                (f"nn{nn}", err1, b1, plain,
+                 pad_bytes + 40 * cells + unit.numel()),
+                (f"b4_nn{nn}", err4, b4, plain, pad_bytes + 32 * h * w),
+                (f"b5_nn{nn}", err5, b5, b5_plain, pad_bytes + 8 * h * w)):
+            t = timing(fn, ref_fn, nbytes, adds, library_note=none,
+                       plain_queued=True)
+            res[key] = dict(max_abs_err=err, nn=nn, **t, floor_ms=floor_ms,
+                            floor_adds=floor["adds"],
+                            share_of_floor=floor_ms / t["device_ms"])
 
     grid, (lsm, z, std, pres, theta, u, v, ci) = strip_world()
     T, nlat, nlon = theta.shape
@@ -2667,17 +2684,71 @@ def phase_past_2047(out):
     sb = kern[1]
     if sb.shape != (T, nlat, nlon) or not np.isfinite(sb).all():
         raise AssertionError("strip diag: sb_con shape or finiteness")
+    # the integral image of land alone: read cd_pad, write the image
+    image = {}
+    for key, (ph, pw) in ((f"strip_nn{nn}", (nlat + 2 * nn, nlon + 2 * nn)),
+                          ("wide_nn391", (FINE_N + 782, FINE_N + 782))):
+        gen = torch.Generator(device=dev).manual_seed(ph)
+        cdp = torch.rand((ph, pw), generator=gen, device=dev) - 0.5
+        err = bit_equal(land_image_cuda(cdp), land_image_plain(cdp),
+                        f"land image {key}")
+        image[key] = dict(max_abs_err=err, shape=(ph, pw), **timing(
+            lambda cdp=cdp: land_image_cuda(cdp),
+            lambda cdp=cdp: land_image_plain(cdp),
+            4 * ph * pw + 4 * (ph + 1) * (pw + 1), 2 * ph * pw,
+            library_note="torch.cumsum twice is the plain version"))
     log(f"# ring radii past {EXACT_NN} ({h}x{w} land within maxdist, every "
         f"cell to NN): B1, B4, B5 bit-equal to plain at NN = "
         + ", ".join(str(n) for n in PAST_NN) + "; "
-        + "; ".join(f"{r} {fmt_timing(t)}" for r, t in res.items())
+        + "; ".join(f"{r} {fmt_timing(t)}, chain-work floor "
+                    f"{t['floor_ms']:.4f} ms ({t['floor_adds']} adds), share "
+                    f"{t['share_of_floor']:.3f}" for r, t in res.items())
         + f"; diag on {nlat}x{nlon} at {KM_SPACING} deg from 54 N, maxdist "
         f"{STRIP_MAXDIST:g} km (NN={nn}), T={T}: kernel path {kms:.3f} "
         f"ms/step, plain {pms:.3f} (probe included, no warm-up); launches "
         f"{launches}; matches plain (max |diff| {worst:.3g}, final ws/wd "
-        f"bit-equal), sb missing fraction {float((sb == MISSING).mean()):.4f}")
+        f"bit-equal), sb missing fraction {float((sb == MISSING).mean()):.4f}"
+        "; integral image of land alone (land_rows + land_cols), bit-equal "
+        "to plain: " + "; ".join(f"{k} {v['shape'][0]}x{v['shape'][1]} "
+                                 f"{fmt_timing(v)}" for k, v in image.items()))
     out.update(res=res, launches=launches, nn=nn, ms_per_step=kms,
-               plain_ms_per_step=pms)
+               plain_ms_per_step=pms, image=image, T=T,
+               strip_call=lambda: run())
+
+
+def phase_strip_profile(past):
+    """B1's device time inside one kernel-path ``diag`` call on the strip
+    world (:func:`phase_past_2047`), under ``torch.profiler``: the sum of
+    its kernels' device times (the integral image and the sweep build's
+    kernels; last of the phases, with :func:`phase_kernels_a_call`, so that
+    no timed phase runs after the profiler), a step's worth beside the
+    unprofiled run's ms/step.  "not measured" where the profiler sees no
+    device activity."""
+    import re
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    run = past.pop("strip_call")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    mine = [e for e in kern if re.search(r"sweep_\w+|land_(rows|cols)",
+                                         e.name)]
+    if not kern:
+        log("# strip diag under torch.profiler: B1's device time not "
+            "measured (the profiler saw no device activity)")
+        return
+    b1_ms = sum(e.device_time for e in mine) / 1e3 / past["T"]
+    past["strip_b1"] = dict(device_ms_per_step=b1_ms,
+                            share=b1_ms / past["ms_per_step"],
+                            kernels=len(mine))
+    log(f"# strip diag (NN={past['nn']}) under torch.profiler: B1's kernels "
+        f"(land_rows, land_cols, sweep_*) {b1_ms:.3f} ms of device time a "
+        f"step ({len(mine)} kernels in {past['T']} steps), "
+        f"{past['strip_b1']['share']:.3f} of the unprofiled run's "
+        f"{past['ms_per_step']:.3f} ms/step")
 
 
 def phase_kernels_a_call(wide):
@@ -3135,6 +3206,7 @@ def main():
     phase_driver(driver)
     phase_multiprocess(multiprocess)
     phase_kernels_a_call(wide)
+    phase_strip_profile(past)
 
     def per_kernel(name):
         return {g: padded[g][name] for g in padded}
@@ -3215,7 +3287,7 @@ def main():
              "ring_kernel.py:694", past["res"],
              past["launches"]["ring_trigger_stacked"],
              f"diag on the {STRIP_SHAPE[0]} x {STRIP_SHAPE[1]} strip world, "
-             f"maxdist {STRIP_MAXDIST:g} km, NN = {past['nn']}: B1's large "
+             f"maxdist {STRIP_MAXDIST:g} km, NN = {past['nn']}: B1's sweep "
              f"build past NN = {EXACT_NN} (alone: B1 nn*, B4 b4_nn*, B5 "
              f"b5_nn* on {PAST_FIELD[0]} x {PAST_FIELD[1]} land)")):
         first, *rest = meas

@@ -81,6 +81,8 @@ SIGNATURES = {
     "sbz_ring_limits": (_P, _P, _P),
     # h, w, nn, &ints: the int32 scratch the three launchers need
     "sbz_ring_scratch": (_I, _I, _I, _P),
+    # cd_pad, ii, ph, pw, stream: the launchers' integral image of land alone
+    "sbz_ring_land_image": (_P, _P, _I, _I, _P),
     # src[S], dst[S] (host pointer arrays), py, px, c, h, w, hy, hx,
     # zero_fill, exact_lon, stream
     "sbz_halo_exchange": (_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),

@@ -25,8 +25,13 @@ per tile.  On the card the three take ring radii NN up to the limits that
 first radius on, their large build takes scratch for an int32 integral
 image of the padded land mask, which the wrappers allocate
 (:func:`_scratch`).  Past 2047 the window's cell count passes 2^24 and the
-plain version's float32 land count rounds; the large build carries the
-same float chain there, bit-equal to it.
+plain version's float32 land count rounds; there the sweep build takes
+the launch, which carries the same float chain, bit-equal to it, and runs
+each running sum once per field over the whole card (its chains' states
+and band buffers also in the scratch, ~530 bytes a cell;
+``tools/ring_sweep_model.py`` models its schedule).  A field whose sweep
+scratch would pass 1 GiB (~1.7 M cells at NN = 2048) takes the large
+build there too, which carries the same chain and needs the image alone.
 """
 from __future__ import annotations
 
@@ -79,13 +84,43 @@ def _require_nn(NN: int, h: int, w: int, name: str):
 
 def _scratch(h: int, w: int, NN: int, device):
     """The int32 scratch the kernels ask for at radius NN over an (h, w)
-    field (``sbz_ring_scratch``): their large build's integral image of
-    land, which it builds at each launch; None where they need none."""
+    field (``sbz_ring_scratch``): the large build's integral image of land,
+    which it builds at each launch, and where the sweep build takes the
+    launch (past 2047, up to 1 GiB) its states and band buffers after it;
+    None where they need none."""
     ints = ctypes.c_longlong()
     _build.load().sbz_ring_scratch(h, w, NN, ctypes.byref(ints))
     if ints.value == 0:
         return None
     return torch.empty(ints.value, dtype=torch.int32, device=device)
+
+
+def land_image_plain(cd_pad):
+    """(ph + 1, pw + 1) int32 integral image of land (``cd_pad >= 0``) of a
+    padded (ph, pw) field: entry [i, j] counts the land cells of rows < i
+    and columns < j."""
+    land = (cd_pad >= 0).to(torch.int32)
+    return F.pad(land.cumsum(0, dtype=torch.int32).cumsum(
+        1, dtype=torch.int32), (1, 0, 1, 0))
+
+
+def land_image_cuda(cd_pad):
+    """The integral image of :func:`land_image_plain`, built by the two
+    kernels every launch of B1, B4 and B5 starts with from the large
+    build's radius on (``sbz_ring_land_image``), launched alone so that
+    they can be timed apart.  A CPU tensor takes the plain version."""
+    if cd_pad.device.type == "cpu":
+        return land_image_plain(cd_pad)
+    ph, pw = cd_pad.shape
+    _build.require(cd_pad, "cd_pad", (ph, pw), cd_pad.device)
+    ii = torch.empty((ph + 1, pw + 1), dtype=torch.int32,
+                     device=cd_pad.device)
+    with torch.cuda.device(cd_pad.device):
+        err = _build.load().sbz_ring_land_image(
+            cd_pad.data_ptr(), ii.data_ptr(), ph, pw,
+            torch.cuda.current_stream().cuda_stream)
+    _build.check(err, "land_image_cuda")
+    return ii
 
 
 def _ptr(t):

@@ -15,7 +15,8 @@ coupling path, B5 the ring search alone, B6 the halo exchange of the
 decomposed run (``ShardedPipeline``), on ragged, 1-wide and 64-shard
 meshes.  B1, B4 and B5 run ring radii from 1 to 2204, past the 2047 at
 which the window's cell count passes 2^24 and the float32 land count
-rounds (from 52 on their large build; ``ring_limits``).  B2's
+rounds (from 52 on their large build, past 2047 on their sweep build;
+``ring_limits``).  B2's
 two-extremum form (``pass2_min_two_cuda``) runs on the same shapes as its
 single form, with negative po.  The nearest lon form's hybrid run (torch
 pass 1 + B2) is held to its plain path at 0.25 deg.
@@ -36,9 +37,10 @@ from seabreeze_param_tpu_torch.ops.cuda.distance_kernel import (
     min_haversine_limits, min_haversine_param_cuda, pass2_min_cuda,
     pass2_min_limits, pass2_min_two_cuda, pass2_min_two_limits)
 from seabreeze_param_tpu_torch.ops.cuda.halo_kernel import halo_exchange_cuda
+from seabreeze_param_tpu_torch.ops.cuda import ring_kernel
 from seabreeze_param_tpu_torch.ops.cuda.ring_kernel import (
-    StackedScan, ring_limits, ring_thc_cuda_padded, ring_trigger_cuda_padded,
-    ring_trigger_cuda_stacked)
+    StackedScan, land_image_cuda, land_image_plain, ring_limits,
+    ring_thc_cuda_padded, ring_trigger_cuda_padded, ring_trigger_cuda_stacked)
 from seabreeze_param_tpu_torch.ops.distance import (
     DistanceTables, device_tables, min_haversine_param_from_padded, pad_coast,
     pass1_extrema, pass2_min, window_monotone)
@@ -417,6 +419,115 @@ def test_ring_kernels_past_2047_bit_equal_to_plain(shape, nn, coast, dev):
     whose windows never hold both classes, so every cell carries the
     rounded count to NN."""
     _ring_two_steps(shape, nn, coast, dev)
+
+
+def _past_field(kind, nn, t, dev):
+    """One step's ring inputs of a field past NN = 2047 (seed ``t``):
+    'many_tiles' 600 x 128 land cells within maxdist (152 coastal 16 x 32
+    tiles, more than an H100's 132 SMs; every cell runs to NN); 'mixed' 64
+    x 160 land with a sea column 2048 - w/2 columns past the field's last
+    (moved a column at step 1), so the western cells latch past 2047 on the
+    rounded land count and the eastern ones below it; 'partial' 600 x 128
+    land whose rows within maxdist are 0-199 at step 0 and 150-349 at step
+    1 (B1's ever-coastal set a part of its tiles, growing); 'line' 64 x
+    160 with a diagonal coast; 'over_budget' 1440 x 1440 land with a sea
+    column as 'mixed' (latch radii ~1300 to past 2047), whose sweep would
+    need more scratch than the kernels allow it, so the large build takes
+    it."""
+    h, w = ((64, 160) if kind in ("mixed", "line") else
+            (1440, 1440) if kind == "over_budget" else (600, 128))
+    rng = np.random.default_rng(100 + t)
+    y, x = np.mgrid[-nn:h + nn, -nn:w + nn].astype(np.float32)
+    cd = 50.0 + 100.0 * rng.random(y.shape)
+    if kind in ("mixed", "over_budget"):
+        cd[:, nn + w - 1 + 2048 - w // 2 + t] = -40.0
+    elif kind == "partial":
+        lo = 0 if t == 0 else 150
+        cd = np.where((y >= lo) & (y < lo + 200), cd, cd + 500.0)
+    elif kind == "line":
+        cd = (x + 0.5 * y - w // 3 - 6 * t) * 10.0
+        cd = np.where(cd == 0, 1.0, cd)
+    cd = cd.astype(np.float32)
+    t0 = (280.0 + 10.0 * rng.random(y.shape)).astype(np.float32)
+    D = lambda a: torch.as_tensor(np.ascontiguousarray(a), device=dev)  # noqa
+    wind = (D((5 + 3 * rng.random((h, w))).astype(np.float32)),
+            D((360 * rng.random((h, w)) - 180).astype(np.float32)))
+    return D(t0), D(cd), D(cd[nn:nn + h, nn:nn + w]), wind
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,nn,rows", [
+    ("many_tiles", 2048, None), ("mixed", 2204, None),
+    ("partial", 2048, None), ("line", 2204, (5, 0)), ("line", 2048, (3, -2)),
+    ("over_budget", 2048, None)])
+def test_ring_kernels_past_2047_more_fields(kind, nn, rows, dev):
+    """B1 over two steps of one scan from tt = 14, and B4 and B5 on the same
+    steps, bit-equal to their plain versions past NN = 2047 (the sweep
+    build) on fields beyond test_ring_kernels_past_2047_bit_equal_to_plain's
+    (:func:`_past_field`): more coastal tiles than the card has SMs, latch
+    radii on both sides of 2047 in one field, a partial and growing
+    ever-coastal set (tiles never coastal keep the pre-fill), and a block
+    whose first row is global row ``row_offset`` of a grid of
+    ``row_offset + h + extra`` rows (``rows``), and a field too large for
+    the sweep's scratch, which the large build takes: its scratch is the
+    integral image alone, every other field's more."""
+    params = Params()
+    steps = [_past_field(kind, nn, t, dev) for t in range(2)]
+    h, w = steps[0][2].shape
+    image = (h + 2 * nn + 1) * (w + 2 * nn + 1)
+    scratch = ring_kernel._scratch(h, w, nn, dev).numel()
+    assert (scratch == image) == (kind == "over_budget"), (scratch, image)
+    if kind == "many_tiles":
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        assert int(StackedScan(h, w, params, dev).add_coastal(
+            steps[0][2]).sum()) > sms
+    kw = {} if rows is None else dict(row_offset=rows[0],
+                                      nlat_total=rows[0] + h + rows[1])
+    rng = np.random.default_rng(nn)
+    ws0, wd0 = (torch.as_tensor(a.astype(np.float32), device=dev) for a in (
+        5 + rng.random((h, w)), 360 * rng.random((h, w)) - 180))
+    scan = StackedScan(h, w, params, dev)
+    bufs = scan.init_buffers(2, ws0, wd0, **kw)
+    ws_s, wd_s = ws0.clone(), wd0.clone()
+    ws_p, wd_p = ws0.clone(), wd0.clone()
+    for t, (t0_pad, cd_pad, cd, (ws_new, wd_new)) in enumerate(steps):
+        flags = cadence(14 + t, params)
+        ever = scan.add_coastal(cd)
+        if kind == "partial":
+            assert 0 < int(ever.sum()) < ever.numel()
+        ring_trigger_cuda_stacked(t0_pad, cd_pad, cd, ws_new, wd_new, ws_s,
+                                  wd_s, *flags, params, nn, t, *bufs, ever,
+                                  **kw)
+        ref = trigger_cells(cd, ws_new, wd_new, ws_p, wd_p, t0_pad, cd_pad,
+                            *flags, params, nn, **kw)
+        for b, want in zip(bufs, ref):
+            torch.testing.assert_close(b[t], want, rtol=0, atol=0)
+        got = ring_trigger_cuda_padded(t0_pad, cd_pad, cd, ws_new, wd_new,
+                                       ws_p, wd_p, *flags, params, nn, **kw)
+        for g, want in zip(got, (ref[0], ref[3], ref[4])):
+            torch.testing.assert_close(g, want, rtol=0, atol=0)
+        n_thc = ring_thc_cuda_padded(t0_pad, cd_pad, cd, nn)
+        want, _ = ring_thc_from_padded(ring_quantities(t0_pad, cd_pad),
+                                       torch.where(cd >= 0, 1.0, -1.0), nn,
+                                       coastal=cd.abs() <= 180.0)
+        torch.testing.assert_close(n_thc, want, rtol=0, atol=0)
+        ws_p, wd_p = ref[3], ref[4]
+        torch.testing.assert_close(ws_s, ws_p, rtol=0, atol=0)
+        torch.testing.assert_close(wd_s, wd_p, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 1), (37, 70), (4440, 6608)])
+def test_ring_land_image_equals_plain(shape, dev):
+    """The integral image of land that every B1, B4 and B5 launch from NN =
+    52 on starts with, launched alone (``land_image_cuda``, timed so in
+    ``chip_smoke.py``), equals cumulative sums of the land mask, on a
+    one-cell field, a ragged one and the 1 km strip's padded field at NN =
+    2204."""
+    gen = torch.Generator(device=dev).manual_seed(shape[0])
+    cd_pad = torch.rand(shape, generator=gen, device=dev) - 0.5
+    torch.testing.assert_close(land_image_cuda(cd_pad),
+                               land_image_plain(cd_pad), rtol=0, atol=0)
 
 
 @pytest.mark.cuda

@@ -25,6 +25,13 @@ Builds, with one ``nvcc`` per library, all started together:
   32 x 32 tiles of two cells per thread, and both;
 * B1/B4/B5 ``large``: ``ring_trigger.cu`` with every NN on its large build
   (``-DSBZ_RING_LARGE_FROM=1``), which the port takes from NN = 52;
+* B1/B4/B5 ``sweep``: ``ring_trigger.cu`` with the sweep build, which the
+  port takes past NN = 2047, from NN = 52 on (``-DSBZ_RING_SWEEP_FROM=52``),
+  timed beside the large build at the fine, 1 km and 0.4 km worlds;
+* B1/B4/B5 ``sweep_first``: ``tools/designs/ring_trigger_sweep_first.cu``,
+  the sweep build's first design (hp cells staged anew every chunk, vc
+  warps of 8 rows loading their own cells, a window a radius at a time),
+  past NN = 2047;
 * B1/B4/B5 ``no_vc_stage``, ``no_corners``, ``land_chains``, ``first``,
   ``staged_2block``, ``unstaged`` and ``image_2block``:
   ``tools/designs/ring_trigger_large_variants.cu``, the large build with
@@ -94,7 +101,13 @@ one, which sets where the large build starts), on
 ``chip_smoke.fine_world`` at the coupled step's NN = 97 and ``diag``'s NN
 = 208 (B4 at 97), and on
 ``chip_smoke.km_world`` at ``diag``'s NN = 243 (no build of the parent
-takes it) and on the 0.4 km world (``wide387``) at its NN = 391; B6 on
+takes it) and on the 0.4 km world (``wide387``) at its NN = 391; B1, B4
+and B5 past NN = 2047 on ``chip_smoke.py``'s 64 x 128 land field at NN =
+2048 and 2204 (``land@2048``, ``land@2204``: no window holds both
+classes, so every cell runs to NN), B1 on its 1 km strip
+(``chip_smoke.strip_world``, 32 x 2200 at maxdist 3000 km, NN = 2204,
+``strip@2204``) and on a 600 x 128 land field at NN = 2048
+(``many@2048``: 152 coastal tiles, more than the card's SMs); B6 on
 random 2 x 4 shards of both grids at the width of theta's
 exchange (NN), beside two yardsticks in the same passes: ``take``, the
 smoke's library call (``torch.take`` through an index map), and ``copy``, a
@@ -183,6 +196,8 @@ def builds(against):
     b1["tall"] = (var, ("-DSBZ_RING_CPT=2",))
     b1["tall_prefetch"] = (var, ("-DSBZ_RING_CPT=2", "-DSBZ_RING_PREFETCH=1"))
     b1["large"] = (CSRC / "ring_trigger.cu", ("-DSBZ_RING_LARGE_FROM=1",))
+    b1["sweep"] = (CSRC / "ring_trigger.cu", ("-DSBZ_RING_SWEEP_FROM=52",))
+    b1["sweep_first"] = (DESIGNS / "ring_trigger_sweep_first.cu", ())
     lv = DESIGNS / "ring_trigger_large_variants.cu"
     chains = "-DSBZ_RING_LAND_CHAINS=1"
     b1["no_vc_stage"] = (lv, ("-DSBZ_RING_VC_STAGE=0",))
@@ -454,18 +469,60 @@ def b3_case(name):
     return check, make_call, yard
 
 
+#: A land field past NN = 2047 with more coastal tiles (152 of 16 x 32)
+#: than an H100 has SMs (132): test_torch_cuda.py's many-tiles field.
+MANY_FIELD = (600, 128)
+
+
+def land_inputs(nn, shape=None):
+    """``chip_smoke.phase_past_2047``'s field past NN = 2047: ``shape``
+    (default PAST_FIELD) cells, all land within maxdist (no window holds
+    both classes), padded at ``nn``, made from the seed ``nn``; in
+    :func:`ring_inputs`' form."""
+    import torch
+    from seabreeze_param_tpu_torch.core.params import Params
+    from seabreeze_param_tpu_torch.ops.trigger import cadence
+    h, w = cs.PAST_FIELD if shape is None else shape
+    rng = np.random.default_rng(nn)
+    D = lambda a: torch.as_tensor(a, device="cuda")  # noqa: E731
+    cd_pad = D((50.0 + 100.0 * rng.random((h + 2 * nn, w + 2 * nn)))
+               .astype(np.float32))
+    t0_pad = D((280.0 + 10.0 * rng.random(cd_pad.shape)).astype(np.float32))
+    ws_new, wd_new, ws0, wd0 = (D(a) for a in (
+        (5 + 3 * rng.random((h, w))).astype(np.float32),
+        (360 * rng.random((h, w)) - 180).astype(np.float32),
+        (5 + rng.random((h, w))).astype(np.float32),
+        (360 * rng.random((h, w)) - 180).astype(np.float32)))
+    params = Params()
+    return dict(nlat=h, nlon=w, nn=nn, params=params,
+                cd=cd_pad[nn:nn + h, nn:nn + w].contiguous(), ws_new=ws_new,
+                wd_new=wd_new, t0_pad=t0_pad, cd_pad=cd_pad, ws0=ws0, wd0=wd0,
+                flags=cadence(15, params))
+
+
 def ring_inputs(name, nn=None):
     """One step of a world (tt = 15, a wind refresh) on the card: the ring
     kernels' inputs padded at ``nn`` (default: the pipeline's NN) and the
     state.  ``name``: one of ``bench.GRIDS``, ``fine`` for
-    ``chip_smoke.fine_world``, ``km`` for ``chip_smoke.km_world`` or
-    ``wide387`` for the 0.4 km world of ``chip_smoke.wide_world``."""
+    ``chip_smoke.fine_world``, ``km`` for ``chip_smoke.km_world``,
+    ``wide387`` for the 0.4 km world of ``chip_smoke.wide_world``, ``strip``
+    for ``chip_smoke.strip_world`` (maxdist STRIP_MAXDIST), ``land`` for
+    :func:`land_inputs` or ``many`` for it on :data:`MANY_FIELD`."""
     import torch
     from bench import GRIDS, make_world
     from seabreeze_param_tpu_torch.core.params import Params
     from seabreeze_param_tpu_torch.models.pipeline import TriggerPipeline
     from seabreeze_param_tpu_torch.ops.trigger import cadence, prepare_step
-    if name in ("fine", "km", "wide387"):
+    if name == "land":
+        return land_inputs(nn)
+    if name == "many":
+        return land_inputs(nn, MANY_FIELD)
+    params = Params()
+    if name == "strip":
+        params = Params(maxdist=cs.STRIP_MAXDIST)
+        grid, world = cs.strip_world()
+        nlat, nlon = grid.shape
+    elif name in ("fine", "km", "wide387"):
         grid, world = (cs.fine_world() if name == "fine" else cs.km_world()
                        if name == "km" else cs.wide_world(REGIONAL[name][0]))
         nlat, nlon = grid.shape
@@ -475,8 +532,7 @@ def ring_inputs(name, nn=None):
         world = make_world(nlat, nlon, 4, 3, seed=3)
     lsm, z, std, pres, theta, u, v, ci = world
     dev = torch.device("cuda")
-    pipe = TriggerPipeline(grid, device=dev)
-    params = Params()
+    pipe = TriggerPipeline(grid, params=params, device=dev)
     nn = pipe.nn_max if nn is None else nn
     D = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
     t = min(2, len(theta) - 1)              # the 0.4 km world has 2 steps
@@ -586,12 +642,13 @@ def b4_case(name, nn=None):
     return check, make_call
 
 
-def b5_case(name):
-    """(check, make_call) for B5 (the ring search alone) at ``name``."""
+def b5_case(name, nn=None):
+    """(check, make_call) for B5 (the ring search alone) at ``name``
+    (padded at ``nn``)."""
     import torch
     from seabreeze_param_tpu_torch.ops.ring_search import (
         ring_quantities, ring_thc_from_padded)
-    x = ring_inputs(name)
+    x = ring_inputs(name, nn)
     nlat, nlon, nn, params, cd = (x[k] for k in ("nlat", "nlon", "nn",
                                                  "params", "cd"))
     maxdist = float(np.float32(params.maxdist))
@@ -841,14 +898,24 @@ def main():
               lambda nn=nn: b1_case("global010", nn),
               ["this", "large"]) for nn in (40, 44, 48, 52, 57)]
     plan += [("B1", "B1", f"fine@{nn}", lambda nn=nn: b1_case("fine", nn),
-              mine + large) for nn in (97, 208)]
+              mine + large + (["sweep"] if nn == 208 else []))
+             for nn in (97, 208)]
     plan += [("B4", "B1", "fine@97", lambda: b4_case("fine", 97),
               mine + large)]
     plan += [("B1", "B1", "km@243", lambda: b1_case("km", 243),
-              ["this"] + large)]
+              mine + large + ["sweep"])]
     # the 0.4 km world at diag's NN (the parent's large build takes it)
     plan += [("B1", "B1", "wide387@391", lambda: b1_case("wide387", 391),
-              mine)]
+              mine + ["sweep"])]
+    # past NN = 2047: the smoke's land field and its 1 km strip
+    for nn in cs.PAST_NN:
+        plan += [(kern, "B1", f"land@{nn}", lambda f=f, nn=nn: f("land", nn),
+                  mine + ["sweep_first"])
+                 for kern, f in (("B1", b1_case), ("B4", b4_case),
+                                 ("B5", b5_case))]
+    plan += [("B1", "B1", "strip@2204", lambda: b1_case("strip"),
+              mine + ["sweep_first"])]
+    plan += [("B1", "B1", "many@2048", lambda: b1_case("many", 2048), mine)]
     # the wide-radius designs run only where their routine is taken
     wide = ("l1", "ring", *PRUNED_OPTIONS)
     plan = [(kern, group, size, case, names if names is not None else
