@@ -93,9 +93,10 @@ MP_RANKS, MP_TIMEOUT = 2, 480
 #: calls of B6's exchange with the trade that are timed together.
 MP_GROUP_MESHES, MP_GROUPS, MP_TRADES = ("2x4", "4x2"), 2, 20
 #: B2's two-extremum form alone: the radii it is held bit-equal at (the
-#: main world's 6 and 0.1 deg's 15, its staged build's widest, 93, and one
-#: past, and 387 on the unstaged routine), those timed, and the seed of its
-#: negative po.
+#: main world's 6 and 0.1 deg's 15, its staged build's widest
+#: (``pass2_min_two_limits``) and one past, the shared-memory limit of that
+#: build, 93, and one past, and 387 on the pruned build), those timed, and
+#: the seed of its po drawn from [-1, 1].
 TWO_RADII, TWO_TIMED, TWO_SEED = (0, 6, 15, 93, 94, 387), (6, 93, 387), 17
 #: Ring radii past the exact float32 land counts: B1, B4 and B5 alone at
 #: these NN on a PAST_FIELD field whose cells are all land within maxdist
@@ -2449,7 +2450,8 @@ def phase_nearest(out):
 def two_extremum_inputs(grid, lsm, ci, k, dev):
     """B2's two-extremum inputs on one world's coastline at radius ``k``:
     pass 1's extrema (``need_max=True``), the grid's sdphi2 (its rows'
-    flags set: they fall to the centre tap) and po drawn from [-1, 1]."""
+    flags set: they fall to the centre tap) and two po: drawn from [-1, 1]
+    and the grid's own (>= 0)."""
     import torch
     from seabreeze_param_tpu_torch.ops.coastline import get_edges
     from seabreeze_param_tpu_torch.ops.distance import (
@@ -2462,7 +2464,15 @@ def two_extremum_inputs(grid, lsm, ci, k, dev):
     rng = np.random.default_rng(TWO_SEED + k)
     po = torch.as_tensor((2 * rng.random(tabs[1].shape) - 1).astype(
         np.float32), device=dev)
-    return mmin, mmax, tabs[0], po, tabs.row_monotone
+    return mmin, mmax, tabs[0], {"random": po, "grid": tabs[1]}, \
+        tabs.row_monotone
+
+
+def bits_equal(got, ref, what):
+    """:func:`bit_equal` with signed zeros told apart."""
+    import torch
+    bit_equal(got.view(torch.int32), ref.view(torch.int32), what)
+    return bit_equal(got, ref, what)
 
 
 def phase_two_extremum(out):
@@ -2470,10 +2480,18 @@ def phase_two_extremum(out):
     point takes: first as a standalone op on the 8 coupled steps' extrema
     with the grid's own tables (po >= 0), where it equals the single
     form's result bit for bit (its launches are the row's); then alone on
-    the main world's coastline at each of :data:`TWO_RADII` with po drawn
-    from [-1, 1] (where the forms differ), bit-equal to its plain version
-    with the rows' flags and without, timed at :data:`TWO_TIMED` and at 0.1
-    deg (k = 15)."""
+    the main world's coastline at each of :data:`TWO_RADII`, with po drawn
+    from [-1, 1] (where the forms differ) and with the grid's po (where it
+    equals the single form, bit for bit), each bit-equal to its plain
+    version with the rows' flags and without; timed at :data:`TWO_TIMED`
+    and at 0.1 deg (k = 15) with both po, the single form timed beside it
+    on the grid's.  Its bound: bytes of Mmin, the tables, the output and
+    only the padded rows of Mmax that a tap with po < 0 reaches (none with
+    the grid's po); operations 3 a tap of the least taps any exact
+    centre-out exit takes (``tools/pruned_model.py::pass2_two_floor_taps``,
+    each cell leaving once its running minimum is its own minimum), not of
+    the taps of the form's own exit on L (``pass2_two_least_taps``, whose
+    output must equal the kernel's; printed beside it)."""
     import torch
     from bench import make_world
     from seabreeze_param_tpu_torch.ops.coastline import get_edges
@@ -2481,6 +2499,7 @@ def phase_two_extremum(out):
         pass2_min_cuda, pass2_min_two_limits)
     from seabreeze_param_tpu_torch.ops.distance import (
         device_tables, effective_radius, pad_coast, pass1_extrema, pass2_min)
+    from tools.pruned_model import pass2_two_floor_taps, pass2_two_least_taps
     dev = torch.device("cuda")
     grid, d = coupled_inputs(dev)
     k = effective_radius(grid, 180.0)
@@ -2496,8 +2515,8 @@ def phase_two_extremum(out):
     if launches != len(ext):
         raise AssertionError(f"pass2_min_two launched {launches} times")
     for s, ((mn, _), got) in enumerate(zip(ext, two)):
-        bit_equal(got, pass2_min_cuda(mn, tabs[0], tabs[1], k),
-                  f"B2 two-extremum, coupled step {s}, vs the single form")
+        bits_equal(got, pass2_min_cuda(mn, tabs[0], tabs[1], k),
+                   f"B2 two-extremum, coupled step {s}, vs the single form")
 
     staged = pass2_min_two_limits()
     if staged + 1 not in TWO_RADII or staged not in TWO_RADII:
@@ -2512,34 +2531,69 @@ def phase_two_extremum(out):
             mgrid = world_grid(name)[0]
             lsm, *_, ci = make_world(mgrid.nlat, mgrid.nlon, 1, 1, seed=3)
         for kk in radii:
-            mn, mx, sd, po, rows = two_extremum_inputs(
+            mn, mx, sd, pos, rows = two_extremum_inputs(
                 mgrid, lsm, ci[0], kk, dev)
-            ref = pass2_min(mn, sd, po, kk, Mmax=mx)
-            # one column a window (k = 0) has Mmax = Mmin
-            if kk and not bool((ref < pass2_min(mn, sd, po, kk)).any()):
-                raise AssertionError(f"B2 two-extremum k={kk}: the forms "
-                                     f"agree, so Mmax is not read")
-            errs[name, kk] = max(bit_equal(
-                pass2_min_cuda(mn, sd, po, kk, Mmax=mx, row_monotone=f),
-                ref, f"B2 two-extremum {name} k={kk}") for f in (rows, None))
-            if name == "global025" and kk not in TWO_TIMED:
-                continue
-            h, w = ref.shape
-            nwin = 2 * kk + 1
-            reach = int((ref < float(BIG) / 2).sum())
-            res[name if kk in (6, 15) else f"k{kk}"] = dict(
-                max_abs_err=errs[name, kk], k=kk, **timing(
-                    lambda: pass2_min_cuda(mn, sd, po, kk, Mmax=mx),
-                    lambda: pass2_min(mn, sd, po, kk, Mmax=mx),
-                    4 * (2 * mn.numel() + h * w + 2 * h * nwin),
-                    4 * nwin * reach, library_note=none,
-                    plain_queued=nwin > 64))
+            for kind, po in pos.items():
+                ref = pass2_min(mn, sd, po, kk, Mmax=mx)
+                single = pass2_min_cuda(mn, sd, po, kk, row_monotone=rows)
+                if kind == "grid":
+                    bits_equal(ref, single, f"B2 two-extremum plain {name} "
+                               f"k={kk}, grid po, vs the single form")
+                # one column a window (k = 0) has Mmax = Mmin
+                elif kk and not bool((ref < single).any()):
+                    raise AssertionError(f"B2 two-extremum k={kk}: the "
+                                         f"forms agree, so Mmax is not read")
+                errs[name, kk, kind] = max(bits_equal(
+                    pass2_min_cuda(mn, sd, po, kk, Mmax=mx, row_monotone=f),
+                    ref, f"B2 two-extremum {name} k={kk} {kind} po")
+                    for f in (rows, None))
+                if name == "global025" and kk not in TWO_TIMED:
+                    continue
+                h, w = ref.shape
+                nwin = 2 * kk + 1
+                host = [a.cpu().numpy() for a in (mn, mx, sd, po)]
+                ref_h = ref.cpu().numpy()
+                least_out, least = pass2_two_least_taps(*host, kk)
+                _, floor = pass2_two_floor_taps(*host, kk, amin=ref_h)
+                if not np.array_equal(least_out, ref_h):
+                    raise AssertionError(f"B2 two-extremum {name} k={kk}: "
+                                         f"the host model's output differs")
+                # Mmax is read only on the padded rows a tap with po < 0
+                # reaches; Mmin, the tables and the output in full
+                neg = torch.zeros(mn.shape[0], dtype=torch.bool, device=dev)
+                ys, ds = torch.nonzero(po < 0, as_tuple=True)
+                neg[ys + ds] = True
+                hi_rows = int(neg.sum())
+                entry = (name if kk in (6, 15) else f"k{kk}")
+                entry = entry if kind == "random" else f"grid_{entry}"
+                res[entry] = dict(
+                    max_abs_err=errs[name, kk, kind], k=kk,
+                    least_taps=float(least.mean()),
+                    floor_taps=float(floor.mean()), all_taps=nwin,
+                    mmax_rows=hi_rows, **timing(
+                        lambda: pass2_min_cuda(mn, sd, po, kk, Mmax=mx),
+                        lambda: pass2_min(mn, sd, po, kk, Mmax=mx),
+                        4 * (mn.numel() + hi_rows * w + h * w
+                             + 2 * h * nwin),
+                        3 * int(floor.sum()), library_note=none,
+                        plain_queued=nwin > 64))
+                if kind == "grid":
+                    res[entry]["single_ms"] = device_ms(
+                        lambda: pass2_min_cuda(mn, sd, po, kk,
+                                               row_monotone=rows))
     log(f"# B2 two-extremum: standalone on the {len(ext)} coupled steps "
         f"(k={k}, the grid's po >= 0): {launches} launches, bit-equal to "
-        f"the single form; alone with po in [-1, 1] bit-equal to plain at "
-        f"k = " + ", ".join(f"{n} {kk}" for n, kk in errs)
-        + f" (staged to k = {staged}, with and without row flags); "
-        + "; ".join(f"{r} k={t['k']}: {fmt_timing(t)}"
+        f"the single form; alone bit-equal to plain at "
+        + ", ".join(f"{n} k={kk} {kind} po" for n, kk, kind in errs)
+        + f" (staged to k = {staged}, with and without row flags; with the "
+        f"grid's po bit-equal to the single form); "
+        + "; ".join(f"{r} k={t['k']}: {fmt_timing(t)}; taps a cell: "
+                    f"{t['floor_taps']:.1f} of {t['all_taps']} (any exact "
+                    f"exit's least, the bound's), {t['least_taps']:.1f} "
+                    f"(the exit on L's least); Mmax rows read "
+                    f"{t['mmax_rows']}"
+                    + (f"; single form {t['single_ms']:.4f} ms"
+                       if "single_ms" in t else "")
                     for r, t in res.items()))
     out.update(launches=launches, res=res, staged=staged)
 
@@ -3219,7 +3273,7 @@ def main():
     keys = ("max_abs_err", "device_ms", "call_ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms", "library", "nn", "k", "hybrid_ms",
             "groups", "cards", "peer_path", "group_device_ms",
-            "trade_call_ms", "edges_call_ms", "trade_bound_ms")
+            "trade_call_ms", "edges_call_ms", "trade_bound_ms", "single_ms")
     kernels = []
 
     def dist_row(name, impl):
@@ -3282,7 +3336,8 @@ def main():
              f"two-extremum form): pass2_min_cuda(Mmax=); alone with po in "
              f"[-1, 1] at k = 6 (global025), 15 (global010), "
              + ", ".join(str(x) for x in TWO_TIMED[1:])
-             + f" (staged to k = {two['staged']})"),
+             + f" (staged to k = {two['staged']}); grid_*: the grid's po, "
+             f"single_ms the single form on the same extrema"),
             ("ring_trigger_stacked_past_2047", "ring_trigger.cu",
              "ring_kernel.py:694", past["res"],
              past["launches"]["ring_trigger_stacked"],

@@ -52,14 +52,47 @@
 //   (tools/compare_designs.py --only B2).  The library exports the
 //   threshold (sbz_pass2_min_limits) and the routine's layout
 //   (sbz_pass2_min_layout).
-// * The two-extremum form (sbz_pass2_min_two) stages a second strip, of
-//   Mmax (-BIG beyond the field), beside the first, so its staged build
-//   stops at a narrower radius (MAX_STAGED_K2 = 93, exported by
-//   sbz_pass2_min_two_limits); wider k takes the pruned routine with its
-//   second channel.  Its early exit rests on po >= 0, which this form
-//   exists to drop, so that build runs every tap whatever the row flags.
-//   A tap is min(po * Mmin, po * Mmax), each product rounded, then the
-//   add: the plain version's three torch ops.
+// * The two-extremum form (sbz_pass2_min_two) reads one extremum a tap
+//   where it can.  Its precondition, which pass 1's extrema meet
+//   (ops/distance.py::pass1_extrema(need_max=True)): where Mmin <= BIG/2
+//   (a window with coast), -BIG/2 <= Mmin <= Mmax <= BIG/2; where Mmin >
+//   BIG/2 (none), |Mmax| > BIG/2 (pass 1 gives -BIG; a copy of Mmin gives
+//   BIG).  A rounded multiply by a fixed po is monotone, so min(po * Mmin,
+//   po * Mmax) is po * Mmin where po >= 0 (-0.0 included: the products are
+//   then zeros, which the add to sdphi2 leaves equal) and po * Mmax where
+//   po < 0; the pruned build's tap reads that extremum alone, its
+//   candidate BIG where the value read lies outside [-BIG/2, BIG/2].
+//   po[y, di] is one value for a warp's output row, so the choice costs
+//   no divergence.  The result is the plain version's bit for bit (its
+//   three torch ops, each rounded).
+//   - Its staged build (k <= MAX_STAGED_K2 = 93, exported by
+//     sbz_pass2_min_two_limits) stages a second strip, of Mmax (-BIG
+//     beyond the field), beside the first and takes the plain version's
+//     min of both products a tap: a load chosen by the table entry's sign
+//     waits for that entry's own shared load, a chain one block an SM
+//     cannot hide (PERF.md).  The route stays at that limit: on po drawn
+//     from [-1, 1] the pruned build loses to the staged one at every k up
+//     to it (tools/compare_designs.py --only B2two; times in PERF.md).
+//   - Past it, the pruned routine of pass2_pruned.cuh with an exact early
+//     exit for po of either sign.  Two small launches first build its
+//     bound: two_row_extrema reduces each padded row r to E_lo[r], its
+//     least valid Mmin, and E_hi[r], its greatest valid Mmax; two_bound
+//     gives each output row the least candidate a tap could give,
+//     B[y, di] = sdphi2 + po * E (E = E_lo[y+di] where po >= 0, E_hi[y+di]
+//     where po < 0, each op rounded; BIG where that row holds no valid
+//     value), and its suffix minimum over steps at the routine's votes,
+//     bound_tab[y, g] = min over |di - k| >= g * GROUP of B[y, di] (at
+//     most BIG).  Every candidate of tap di is >= B[y, di] because
+//     __fmul_rn and __fadd_rn are monotone and the value read lies between
+//     E and the sign's side; so a warp may leave once no lane's minimum is
+//     above the entry of the nearest step still to visit, and a row whose
+//     bound_tab[y, 0] is BIG takes no tap.  With po >= 0 and Mmin >= 0 the
+//     bound is never below the single form's (the least sdphi2 still to
+//     come), so on a grid's tables it exits as early.  Both tables sit in
+//     device scratch the wrapper allocates (sbz_pass2_min_two_scratch);
+//     the host waits on nothing.  The builds before this redesign (both
+//     strips staged, both extrema read a tap, every tap past the staged
+//     build) are kept in tools/designs/pass2_min_two_first.cu.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -179,6 +212,97 @@ pass2_min_kernel(const float* __restrict__ mmin,
   }
 }
 
+// The two-extremum form's exit tables (its pruned build), in the scratch
+// of sbz_pass2_min_two_scratch: ext (2, h+2k), each padded row's least
+// valid Mmin and greatest valid Mmax (BIG / -BIG where it holds none;
+// valid: within [-BIG/2, BIG/2], the taps' own test), then bound_tab
+// (h, k/GROUP + 1).
+constexpr int EXT_NT = 256;      // threads a padded row
+constexpr int BOUND_WARPS = 4;   // output rows a block of two_bound
+
+__global__ void __launch_bounds__(EXT_NT)
+two_row_extrema(const float* __restrict__ mmin,
+                const float* __restrict__ mmax, float* __restrict__ ext,
+                int mrows, int w) {
+  const int r = blockIdx.x;
+  const float* a = mmin + (size_t)r * w;
+  const float* b = mmax + (size_t)r * w;
+  float lo = BIG, hi = -BIG;
+#pragma unroll 4
+  for (int x = threadIdx.x; x < w; x += EXT_NT) {
+    const float u = __ldg(a + x), v = __ldg(b + x);
+    if (fabsf(u) <= 0.5f * BIG) lo = fminf(lo, u);
+    if (fabsf(v) <= 0.5f * BIG) hi = fmaxf(hi, v);
+  }
+  for (int o = 16; o > 0; o >>= 1) {
+    lo = fminf(lo, __shfl_xor_sync(~0u, lo, o));
+    hi = fmaxf(hi, __shfl_xor_sync(~0u, hi, o));
+  }
+  __shared__ float s_lo[EXT_NT / 32], s_hi[EXT_NT / 32];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (lane == 0) s_lo[warp] = lo, s_hi[warp] = hi;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    for (int i = 1; i < EXT_NT / 32; ++i)
+      lo = fminf(lo, s_lo[i]), hi = fmaxf(hi, s_hi[i]);
+    ext[r] = lo;
+    ext[mrows + r] = hi;
+  }
+}
+
+// The least candidate tap (t, q) can give on a padded row whose extrema
+// are (lo, hi): the rounded t + q * lo where q >= 0, t + q * hi where q <
+// 0, BIG where that extremum is not valid (the row holds none); at most
+// BIG.
+__device__ __forceinline__ float tap_bound(float t, float q, float lo,
+                                           float hi) {
+  const float e = q >= 0.0f ? lo : hi;
+  return fabsf(e) <= 0.5f * BIG ? fminf(__fadd_rn(t, __fmul_rn(q, e)), BIG)
+                                : BIG;
+}
+
+// One warp an output row: bound_tab[y, g] = min over steps s >= g * GROUP
+// of min(B[y, k-s], B[y, k+s]) (GROUP the routine's steps between two
+// votes), a group a lane, 32 groups at a time from the far end, a suffix
+// minimum across the lanes carried to the next 32.
+__global__ void __launch_bounds__(32 * BOUND_WARPS)
+two_bound(const float* __restrict__ sdphi2, const float* __restrict__ po,
+          const float* __restrict__ ext, float* __restrict__ bound_tab,
+          int h, int k) {
+  constexpr int GROUP = sbz_pruned::GROUP;
+  const int lane = threadIdx.x & 31;
+  const int y = blockIdx.x * BOUND_WARPS + (threadIdx.x >> 5);
+  if (y >= h) return;                    // the whole warp
+  const int ng = k / GROUP + 1;
+  const size_t c = (size_t)y * (2 * k + 1) + k;   // the centre tap
+  const float* t = sdphi2 + c;
+  const float* q = po + c;
+  const float* lo = ext + y + k;         // E_lo of the centre tap's row
+  const float* hi = lo + h + 2 * k;
+  float* out = bound_tab + (size_t)y * ng;
+  float carry = BIG;
+  for (int g0 = (ng - 1) & ~31; g0 >= 0; g0 -= 32) {
+    const int g = g0 + lane;
+    float b = BIG;
+#pragma unroll
+    for (int u = 0; u < GROUP; ++u) {
+      const int s = g * GROUP + u;
+      if (s <= k)
+        b = fminf(b, fminf(tap_bound(__ldg(t - s), __ldg(q - s),
+                                     __ldg(lo - s), __ldg(hi - s)),
+                           tap_bound(__ldg(t + s), __ldg(q + s),
+                                     __ldg(lo + s), __ldg(hi + s))));
+    }
+    for (int o = 1; o < 32; o <<= 1) {
+      const float u = __shfl_down_sync(~0u, b, o);
+      if (lane + o < 32) b = fminf(b, u);
+    }
+    b = fminf(b, carry);
+    if (g < ng) out[g] = b;
+    carry = __shfl_sync(~0u, b, 0);
+  }
+}
+
 template <bool VEC, bool TWO>
 int launch(const float* mmin, const float* mmax, const float* sdphi2,
            const float* po, float* out, int h, int w, int k,
@@ -232,22 +356,40 @@ extern "C" int sbz_pass2_min(const float* mmin, const float* sdphi2,
                                     s);
 }
 
-// The widest k of the two-extremum form's staged build.
+// The widest k of the two-extremum form's staged build; wider k takes the
+// pruned build with its exit tables.
 extern "C" int sbz_pass2_min_two_limits(int* max_staged_k) {
   *max_staged_k = MAX_STAGED_K2;
   return 0;
 }
 
-// The two-extremum form: mmax (h+2k, w) beside mmin, -BIG where the window
-// holds no coast cell.  No row flags: every tap, at every k.
+// The float32 scratch sbz_pass2_min_two needs at (h, w, k): its exit
+// tables past the staged build, none up to it.
+extern "C" int sbz_pass2_min_two_scratch(int h, int w, int k,
+                                         long long* floats) {
+  const long long groups = k / sbz_pruned::GROUP + 1;
+  *floats = k > MAX_STAGED_K2 ? 2LL * (h + 2LL * k) + h * groups : 0;
+  return 0;
+}
+
+// The two-extremum form: mmax (h+2k, w) beside mmin, under the precondition
+// above.  No row flags.  scratch: sbz_pass2_min_two_scratch's floats (may
+// be null where it asks for none).
 extern "C" int sbz_pass2_min_two(const float* mmin, const float* mmax,
                                  const float* sdphi2, const float* po,
                                  float* out, int h, int w, int k,
-                                 void* stream) {
+                                 float* scratch, void* stream) {
   const cudaStream_t s = (cudaStream_t)stream;
-  if (k > MAX_STAGED_K2)
+  if (k > MAX_STAGED_K2) {
+    if (scratch == nullptr) return (int)cudaErrorInvalidValue;
+    const int mrows = h + 2 * k;
+    float* tab = scratch + 2 * (size_t)mrows;
+    two_row_extrema<<<mrows, EXT_NT, 0, s>>>(mmin, mmax, scratch, mrows, w);
+    two_bound<<<(h + BOUND_WARPS - 1) / BOUND_WARPS, 32 * BOUND_WARPS, 0,
+                s>>>(sdphi2, po, scratch, tab, h, k);
     return (int)sbz_pruned::launch_pass2_pruned_two(mmin, mmax, sdphi2, po,
-                                                    out, h, w, k, s);
+                                                    tab, out, h, w, k, s);
+  }
   const bool vec = w % 4 == 0 && (uintptr_t)mmin % 16 == 0 &&
                    (uintptr_t)mmax % 16 == 0;
   return vec ? launch<true, true>(mmin, mmax, sdphi2, po, out, h, w, k, s)

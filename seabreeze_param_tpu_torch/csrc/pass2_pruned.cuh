@@ -40,10 +40,26 @@
 // * The multiply and the add are rounded separately (__fmul_rn, __fadd_rn),
 //   as the plain version runs them as two torch ops.
 // * The two-extremum form (TWO, B2's sbz_pass2_min_two past its staged
-//   build) reads Mmax beside Mmin, a tap taking sdphi2 + min(po * Mmin,
-//   po * Mmax).  Its po may be negative, where a candidate may fall below
-//   its sdphi2, so the early exit's bound does not hold: it runs every tap
-//   and reads no row flags.
+//   build) takes sdphi2 + min(po * Mmin, po * Mmax) a tap.  Where the
+//   window holds coast, Mmin <= Mmax (pass 1's extrema), and a rounded
+//   multiply by a fixed po is monotone, so that minimum is po * Mmin where
+//   po >= 0 and po * Mmax where po < 0: a tap reads the one extremum that
+//   the sign of its po names.  po[y, di] is one value for the warp (its
+//   row), so the choice costs no divergence; the signs of a chunk's 32
+//   steps are taken once, as two ballots, so a tap's address waits on no
+//   shuffle, and a chunk whose po are all >= 0 (every chunk of a grid's own
+//   tables) loads as the single form does.  A candidate is BIG where the
+//   value read lies outside [-BIG/2, BIG/2] (an empty window: Mmin BIG,
+//   Mmax -BIG, or BIG where Mmax is a copy of Mmin).  Its po may be
+//   negative, so the bound of the single form does not hold; the exit
+//   takes its bound from bound_tab (h, k/GROUP + 1) instead: bound_tab[y, g]
+//   is no more than any candidate of a tap at step g * GROUP or past it,
+//   the steps where the votes fall (csrc/pass2_min.cu
+//   builds it from each padded row's least valid Mmin and greatest valid
+//   Mmax), and BIG at j = 0 where no window of the row holds coast, whose
+//   warps take no tap.  Every vote uses it (the entries of a chunk's
+//   groups loaded once, a group a lane, and taken by shuffle); the row
+//   flags are not read.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -68,15 +84,47 @@ __device__ __forceinline__ float candidate(float t, float q, float lo) {
   return lo > 0.5f * BIG ? BIG : c;
 }
 
-__device__ __forceinline__ float candidate2(float t, float q, float lo,
-                                            float hi) {
-  const float c = __fadd_rn(t, fminf(__fmul_rn(q, lo), __fmul_rn(q, hi)));
-  return lo > 0.5f * BIG ? BIG : c;
+// TWO: v is the extremum the sign of q names
+__device__ __forceinline__ float candidate2(float t, float q, float v) {
+  const float c = __fadd_rn(t, __fmul_rn(q, v));
+  return fabsf(v) > 0.5f * BIG ? BIG : c;
+}
+
+// The table entries and taps of the group of steps j .. j+GROUP-1 (past k
+// clamped to k), lane l of the chunk holding step j0 + l.  MIXED (TWO,
+// where some step of the chunk has po < 0: bit l of negm / negp, each
+// side): each tap reads the extremum its sign names, the choice taken
+// from the masks, so no load waits for a shuffle; else Mmin alone.
+template <bool MIXED>
+__device__ __forceinline__ void group_taps(
+    float (&t)[2 * GROUP], float (&q)[2 * GROUP], float (&v)[2 * GROUP][CPL],
+    const float* (&m)[CPL], const float* (&mx)[CPL], float tm, float tpl,
+    float qm, float qpl, unsigned negm, unsigned negp, int j, int k, int w) {
+#pragma unroll
+  for (int g = 0; g < GROUP; ++g) {
+    const int src = (j + g) & 31;
+    t[2 * g] = __shfl_sync(~0u, tm, src);
+    q[2 * g] = __shfl_sync(~0u, qm, src);
+    t[2 * g + 1] = __shfl_sync(~0u, tpl, src);
+    q[2 * g + 1] = __shfl_sync(~0u, qpl, src);
+    const ptrdiff_t off = (ptrdiff_t)min(j + g, k) * w;
+#pragma unroll
+    for (int c = 0; c < CPL; ++c) {
+      if constexpr (MIXED) {
+        v[2 * g][c] = __ldg(((negm >> src) & 1 ? mx[c] : m[c]) - off);
+        v[2 * g + 1][c] = __ldg(((negp >> src) & 1 ? mx[c] : m[c]) + off);
+      } else {
+        v[2 * g][c] = __ldg(m[c] - off);
+        v[2 * g + 1][c] = __ldg(m[c] + off);
+      }
+    }
+  }
 }
 
 // mmin (h+2k, w); TWO: mmax (h+2k, w) too; sdphi2, po (h, 2k+1); row_mono
 // (h) or null: no row is taken to have the property (every tap; TWO never
-// reads it); coast_rows (nseg, h+2k) or null.
+// reads it); coast_rows (nseg, h+2k) or null; TWO: bound_tab (h, k/GROUP
+// + 1), which the single form never reads.
 template <bool TWO>
 __global__ void __launch_bounds__(NT)
 pass2_pruned_kernel(const float* __restrict__ mmin,
@@ -85,7 +133,8 @@ pass2_pruned_kernel(const float* __restrict__ mmin,
                     const float* __restrict__ po,
                     const unsigned char* __restrict__ row_mono,
                     const unsigned char* __restrict__ coast_rows, int nseg,
-                    float* __restrict__ out, int h, int w, int k) {
+                    float* __restrict__ out, int h, int w, int k,
+                    const float* __restrict__ bound_tab) {
   const int lane = threadIdx.x & 31;
   const int y = blockIdx.y * WARPS + (threadIdx.x >> 5);
   if (y >= h) return;                    // the whole warp
@@ -111,51 +160,55 @@ pass2_pruned_kernel(const float* __restrict__ mmin,
     }
     go = __any_sync(~0u, any);
   }
+  const float* lb = TWO ? bound_tab + (size_t)y * (k / GROUP + 1) : nullptr;
+  if constexpr (TWO) go = __ldg(lb) < BIG;
   if (go) {
     const float* tp = sdphi2 + (size_t)y * nwin + k;   // centre tap
     const float* tq = po + (size_t)y * nwin + k;
     const bool mono = !TWO && row_mono != nullptr && row_mono[y] != 0;
     float tm = 0.0f, tpl = 0.0f, qm = 0.0f, qpl = 0.0f;
+    // TWO: the steps of the chunk whose po < 0 (bit l: step j0 + l), each
+    // side, and lane l's bound after the chunk's group l (lanes past the
+    // chunk's groups hold the last)
+    unsigned negm = 0, negp = 0;
+    float lnext = 0.0f;
     // steps j .. j+GROUP-1 each side, past k clamped to k: a tap taken
     // twice leaves the minimum as it is, so every load of a group is
     // issued before the first is used, with no branch between them
     for (int j = 0; j <= k; j += GROUP) {
       float t[2 * GROUP], q[2 * GROUP], v[2 * GROUP][CPL];
-      float u[2 * GROUP][CPL];           // TWO: the taps of mmax
       // lane l holds the entries of step j0 + l, j0 = j rounded down to 32
       if ((j & 31) == 0) {
         const int d = min(j + lane, k);
         tm = __ldg(tp - d), tpl = __ldg(tp + d);
         qm = __ldg(tq - d), qpl = __ldg(tq + d);
-      }
-#pragma unroll
-      for (int g = 0; g < GROUP; ++g) {
-        const int src = (j + g) & 31;
-        t[2 * g] = __shfl_sync(~0u, tm, src);
-        q[2 * g] = __shfl_sync(~0u, qm, src);
-        t[2 * g + 1] = __shfl_sync(~0u, tpl, src);
-        q[2 * g + 1] = __shfl_sync(~0u, qpl, src);
-        const ptrdiff_t off = (ptrdiff_t)min(j + g, k) * w;
-#pragma unroll
-        for (int c = 0; c < CPL; ++c) {
-          v[2 * g][c] = __ldg(m[c] - off);
-          v[2 * g + 1][c] = __ldg(m[c] + off);
-          if (TWO) {
-            u[2 * g][c] = __ldg(mx[c] - off);
-            u[2 * g + 1][c] = __ldg(mx[c] + off);
-          }
+        if constexpr (TWO) {
+          negm = __ballot_sync(~0u, !(qm >= 0.0f));
+          negp = __ballot_sync(~0u, !(qpl >= 0.0f));
+          lnext = __ldg(lb + min(j / GROUP + 1 + lane, k / GROUP));
         }
       }
+      if (TWO && (negm | negp))
+        group_taps<true>(t, q, v, m, mx, tm, tpl, qm, qpl, negm, negp, j, k,
+                         w);
+      else
+        group_taps<false>(t, q, v, m, mx, tm, tpl, qm, qpl, negm, negp, j, k,
+                          w);
       const int nj = j + GROUP;          // the nearest taps still to visit
-      const bool vote = mono && nj <= k;
-      const float bound =
-          vote ? fminf(__ldg(tp - nj), __ldg(tp + nj)) : 0.0f;
+      bool vote;
+      float bound;
+      if constexpr (TWO) {
+        vote = nj <= k;
+        bound = vote ? __shfl_sync(~0u, lnext, (j & 31) / GROUP) : 0.0f;
+      } else {
+        vote = mono && nj <= k;
+        bound = vote ? fminf(__ldg(tp - nj), __ldg(tp + nj)) : 0.0f;
+      }
 #pragma unroll
       for (int i = 0; i < 2 * GROUP; ++i)
 #pragma unroll
         for (int c = 0; c < CPL; ++c)
-          acc[c] = fminf(acc[c], TWO ? candidate2(t[i], q[i], v[i][c],
-                                                  u[i][c])
+          acc[c] = fminf(acc[c], TWO ? candidate2(t[i], q[i], v[i][c])
                                      : candidate(t[i], q[i], v[i][c]));
       if (vote) {
         bool need = false;
@@ -178,20 +231,23 @@ cudaError_t launch_pass2_pruned(const float* mmin, const float* sdphi2,
                                 cudaStream_t stream) {
   const dim3 grid((w + BAND - 1) / BAND, (h + WARPS - 1) / WARPS);
   pass2_pruned_kernel<false><<<grid, NT, 0, stream>>>(
-      mmin, nullptr, sdphi2, po, row_mono, coast_rows, nseg, out, h, w, k);
+      mmin, nullptr, sdphi2, po, row_mono, coast_rows, nseg, out, h, w, k,
+      nullptr);
   return cudaGetLastError();
 }
 
-// The two-extremum form: every tap, no row flags, no coast rows.
+// The two-extremum form: the exit's bound from bound_tab (h, k/GROUP + 1),
+// no row flags, no coast rows.
 inline cudaError_t launch_pass2_pruned_two(const float* mmin,
                                            const float* mmax,
                                            const float* sdphi2,
-                                           const float* po, float* out,
-                                           int h, int w, int k,
+                                           const float* po,
+                                           const float* bound_tab,
+                                           float* out, int h, int w, int k,
                                            cudaStream_t stream) {
   const dim3 grid((w + BAND - 1) / BAND, (h + WARPS - 1) / WARPS);
   pass2_pruned_kernel<true><<<grid, NT, 0, stream>>>(
-      mmin, mmax, sdphi2, po, nullptr, nullptr, 0, out, h, w, k);
+      mmin, mmax, sdphi2, po, nullptr, nullptr, 0, out, h, w, k, bound_tab);
   return cudaGetLastError();
 }
 

@@ -45,10 +45,13 @@ SIGNATURES = {
     "sbz_pass2_min": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
     # &max_staged_k: the widest k of the launcher's staged build
     "sbz_pass2_min_limits": (_P,),
-    # mmin, mmax, sdphi2, po, out, h, w, k, stream: the two-extremum form
-    "sbz_pass2_min_two": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
+    # mmin, mmax, sdphi2, po, out, h, w, k, scratch, stream: the
+    # two-extremum form
+    "sbz_pass2_min_two": (_P, _P, _P, _P, _P, _I, _I, _I, _P, _P),
     # &max_staged_k: the widest k of its staged build
     "sbz_pass2_min_two_limits": (_P,),
+    # h, w, k, &floats: the device scratch of its pruned build
+    "sbz_pass2_min_two_scratch": (_I, _I, _I, _P),
     # &cols_per_lane, &group: the unstaged build's layout
     "sbz_pass2_min_layout": (_P, _P),
     # cpad, sdphi2, po, sdlam2, col_mono, out, h, w, k, stream

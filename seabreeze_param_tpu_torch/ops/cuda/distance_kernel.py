@@ -7,8 +7,9 @@
   :func:`pass2_min_limits` an unstaged build, one warp per row visiting
   the taps centre-out with an exact early exit, ``csrc/pass2_pruned.cuh``);
   its two-extremum form, ``pass2_min_pallas`` with ``Mmax``, is
-  :func:`pass2_min_two_cuda` (staged up to :func:`pass2_min_two_limits`,
-  then the same routine with a second channel and every tap);
+  :func:`pass2_min_two_cuda` (one extremum a tap, chosen by the sign of
+  po; staged up to :func:`pass2_min_two_limits`, then the same routine
+  with an exact early exit for po of either sign);
 * B3 :func:`min_haversine_param_cuda` (``csrc/min_haversine.cu``, replaces
   ``min_haversine_param_pallas``): both passes fused, each block sweeping
   a band of columns; plain version
@@ -91,11 +92,21 @@ def pass2_min_two_cuda(Mmin, Mmax, sdphi2, po, k: int):
     of sdphi2 + min(po * Mmin, po * Mmax), BIG where Mmin is BIG, for
     tables whose po may be negative (``pass1_extrema(need_max=True)``
     gives both extrema).  Shapes as :func:`pass2_min_cuda`, ``Mmax`` as
-    ``Mmin``.  A CUDA tensor launches the kernel (its staged build up to
-    :func:`pass2_min_two_limits`, then the routine of
-    ``csrc/pass2_pruned.cuh`` with a second channel, every tap), counted
-    in ``pass2_min_two_cuda.launches``; a CPU tensor takes the plain
-    version, ``ops.distance.pass2_min(..., Mmax=Mmax)``."""
+    ``Mmin``.
+
+    Precondition, which pass 1's extrema meet: where Mmin <= BIG/2 (a
+    window with coast), -BIG/2 <= Mmin <= Mmax <= BIG/2; where Mmin >
+    BIG/2, |Mmax| > BIG/2 (pass 1's -BIG, or BIG where Mmax is a copy of
+    Mmin).  Under it the kernel's result is the plain version's bit for
+    bit, though its pruned build reads one extremum a tap: Mmin where po
+    >= 0 and Mmax where po < 0.
+
+    A CUDA tensor launches the kernel on the current stream (its staged
+    build up to :func:`pass2_min_two_limits`; past it the routine of
+    ``csrc/pass2_pruned.cuh`` with an exact early exit, after two small
+    launches that build its bound into device scratch allocated here),
+    counted once a call in ``pass2_min_two_cuda.launches``; a CPU tensor
+    takes the plain version, ``ops.distance.pass2_min(..., Mmax=Mmax)``."""
     k = int(k)
     if Mmin.device.type == "cpu":
         return pass2_min(Mmin, sdphi2, po, k, Mmax=Mmax)
@@ -103,10 +114,15 @@ def pass2_min_two_cuda(Mmin, Mmax, sdphi2, po, k: int):
     _build.require(Mmax, "Mmax", (h + 2 * k, w), Mmin.device)
     out = torch.empty((h, w), dtype=torch.float32, device=Mmin.device)
     lib = _build.load()
+    floats = ctypes.c_longlong()
+    lib.sbz_pass2_min_two_scratch(h, w, k, ctypes.byref(floats))
+    scratch = (torch.empty(floats.value, dtype=torch.float32,
+                           device=Mmin.device) if floats.value else None)
     with torch.cuda.device(Mmin.device):
         err = lib.sbz_pass2_min_two(
             Mmin.data_ptr(), Mmax.data_ptr(), sdphi2.data_ptr(),
             po.data_ptr(), out.data_ptr(), h, w, k,
+            None if scratch is None else scratch.data_ptr(),
             torch.cuda.current_stream().cuda_stream)
     _build.check(err, "pass2_min_two_cuda")
     pass2_min_two_cuda.launches += 1
@@ -135,9 +151,10 @@ def pass2_min_limits() -> int:
 def pass2_min_two_limits() -> int:
     """The widest radius k of the two-extremum form's staged build
     (MAX_STAGED_K2 in csrc/pass2_min.cu: it stages two strips, Mmin and
-    Mmax, so it stops at a narrower k than :func:`pass2_min_limits`);
-    wider k runs every tap of the routine of ``csrc/pass2_pruned.cuh``.
-    Read from the built kernels, which it builds at the first call."""
+    Mmax, so it stops at a narrower k than :func:`pass2_min_limits`, and a
+    measured crossover keeps it to there); wider k runs the routine of
+    ``csrc/pass2_pruned.cuh`` with its exact early exit.  Read from the
+    built kernels, which it builds at the first call."""
     return _read_limit("sbz_pass2_min_two_limits")
 
 

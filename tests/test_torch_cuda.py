@@ -18,7 +18,8 @@ which the window's cell count passes 2^24 and the float32 land count
 rounds (from 52 on their large build, past 2047 on their sweep build;
 ``ring_limits``).  B2's
 two-extremum form (``pass2_min_two_cuda``) runs on the same shapes as its
-single form, with negative po.  The nearest lon form's hybrid run (torch
+single form, with negative po, signed zeros and Mmax equal to Mmin, and on
+the grid's tables at k = 387, where its exit fires.  The nearest lon form's hybrid run (torch
 pass 1 + B2) is held to its plain path at 0.25 deg.
 """
 import numpy as np
@@ -51,6 +52,7 @@ from seabreeze_param_tpu_torch.ops.trigger import (cadence, prepare_step,
 from seabreeze_param_tpu_torch.parallel.halo import halo_exchange_plain
 from seabreeze_param_tpu_torch.parallel.mesh import ShardMesh, make_mesh, split
 from seabreeze_param_tpu_torch.parallel.sharded import ShardedPipeline
+from tools.pruned_model import pass2_centre_out, pass2_two_centre_out
 
 MISSING = np.float32(2.0e20)
 GRIDS = {
@@ -165,21 +167,30 @@ def test_pass2_kernel_shapes_bit_equal_to_plain(shape, k, offset, rows, dev):
         torch.testing.assert_close(got, ref, rtol=0, atol=0)
 
 
+#: Kinds of B2's two-extremum inputs: random sdphi2 rows and po in [-1, 1];
+#: the grid-like tables (rows falling to +0 at the centre tap, po >= 0),
+#: where the form equals the single one; po in [-1, 1] with +-0 at the
+#: centre tap; Mmax equal to Mmin (BIG where a window is empty).
+TWO_KINDS = ("random", "tables", "signed_zero", "equal")
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", PASS2_SHAPES)
-@pytest.mark.parametrize("k", [0, 1, 6, 15, 93, 94, 176, 387])
+@pytest.mark.parametrize("k", [0, 1, 6, 15, 93, 94, 175, 387, 1000])
 @pytest.mark.parametrize("offset", [0, 1])
-@pytest.mark.parametrize("rows", ["random", "monotone"])
-def test_pass2_two_extremum_bit_equal_to_plain(shape, k, offset, rows, dev):
+@pytest.mark.parametrize("kind", TWO_KINDS)
+def test_pass2_two_extremum_bit_equal_to_plain(shape, k, offset, kind, dev):
     """B2's two-extremum form against its plain version
-    (``pass2_min(Mmax=)``), bit for bit: random extrema (Mmax >= Mmin,
-    BIG / -BIG rows, blocks and cells), po in [-1, 1] (where the form
-    differs from the single one), at k = 0 to 15, at the staged build's
-    widest radius (93, ``pass2_min_two_limits``: two strips in shared
-    memory) and one past it, and at 176 and 387 on the unstaged routine;
-    ``offset`` 1 places both extrema off the 16-byte alignment.  ``rows``
-    as for the single form: the rows' flags, which this form ignores
-    (its early exit would need po >= 0), are passed and not."""
+    (``pass2_min(Mmax=)``), bit for bit (signed zeros included): random
+    extrema (Mmax >= Mmin, BIG / -BIG rows, blocks and cells) under each of
+    :data:`TWO_KINDS`, at k = 0 to 15, at each side of the staged build's
+    widest radius (93, ``pass2_min_two_limits``: its shared-memory limit
+    and the measured crossover to the pruned build), and at 175, 387 and
+    1000 on the pruned build with its exit;
+    ``offset`` 1 places both extrema off the 16-byte alignment.  The rows'
+    flags, which this form does not read, are passed and not.  With po in
+    [-1, 1] the form differs from the single one; on the grid-like tables
+    and with Mmax equal to Mmin it equals it."""
     assert pass2_min_two_limits() == 93
     h, w = shape
     rng = np.random.default_rng(h * 1000 + w + k + 7)
@@ -189,22 +200,33 @@ def test_pass2_two_extremum_bit_equal_to_plain(shape, k, offset, rows, dev):
     empty = empty[:, None] | (rng.random(m.shape) < 0.1)
     empty[: (h + 2 * k) // 2, : w // 3] = True
     m[empty], mx[empty] = 1.0e30, -1.0e30
+    if kind == "equal":
+        mx = m.copy()
     buf = torch.empty(2 * m.size + 2 * offset, device=dev)
     Mmin = buf[offset:offset + m.size].view(m.shape)
     Mmax = buf[m.size + 2 * offset:].view(m.shape)
     Mmin.copy_(torch.as_tensor(m))
     Mmax.copy_(torch.as_tensor(mx))
-    t = (rng.random((h, 2 * k + 1)).astype(np.float32) if rows == "random"
+    t = (rng.random((h, 2 * k + 1)).astype(np.float32) if kind == "random"
          else _v_rows(rng, h, k))
     flags = torch.as_tensor(window_monotone(t, k).astype(np.uint8),
                             device=dev)
+    q = (2 * rng.random((h, 2 * k + 1)) - 1).astype(np.float32)
+    if kind == "tables":
+        q = np.abs(q)
+    elif kind == "signed_zero":
+        q[:, k] = np.where(np.arange(h) % 2 == 0, np.float32(-0.0),
+                           np.float32(0.0))
     sdphi2 = torch.as_tensor(t, device=dev)
-    po = torch.as_tensor((2 * rng.random((h, 2 * k + 1)) - 1).astype(
-        np.float32), device=dev)
+    po = torch.as_tensor(q, device=dev)
     ref = pass2_min(Mmin, sdphi2, po, k, Mmax=Mmax)
     single = pass2_min(Mmin, sdphi2, po, k)
     assert bool((ref <= single).all())
-    if h * w >= 256:    # a few rows may all take po >= 0 or empty windows
+    if kind in ("tables", "equal"):
+        assert torch.equal(ref.view(torch.int32), single.view(torch.int32))
+    elif h * w >= 256 and (k or kind == "random"):
+        # a few rows may all take po >= 0 or empty windows; at k = 0 the
+        # signed zeros leave the one tap's po at 0
         assert bool((ref < single).any())
     for row_mono in (flags, None):
         before = (pass2_min_two_cuda.launches, pass2_min_cuda.launches)
@@ -212,9 +234,9 @@ def test_pass2_two_extremum_bit_equal_to_plain(shape, k, offset, rows, dev):
                              row_monotone=row_mono)
         assert (pass2_min_two_cuda.launches,
                 pass2_min_cuda.launches) == (before[0] + 1, before[1])
-        torch.testing.assert_close(got, ref, rtol=0, atol=0)
-    torch.testing.assert_close(pass2_min_two_cuda(Mmin, Mmax, sdphi2, po, k),
-                               ref, rtol=0, atol=0)
+        assert torch.equal(got.view(torch.int32), ref.view(torch.int32))
+    got = pass2_min_two_cuda(Mmin, Mmax, sdphi2, po, k)
+    assert torch.equal(got.view(torch.int32), ref.view(torch.int32))
 
 
 @pytest.mark.cuda
@@ -964,6 +986,41 @@ def test_wide_radius_fields_bit_equal_to_plain(kind, k, dev):
                 pass2_min_cuda.launches) == (before[0] + 1, before[1] + 1)
         torch.testing.assert_close(got3, ref, rtol=0, atol=0)
         torch.testing.assert_close(got2, ref, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", WIDE_FIELDS)
+def test_pass2_two_extremum_exit_on_grid_tables(kind, dev):
+    """B2's two-extremum form at k = 387 (its pruned build) on pass 1's
+    extrema of the wide-radius fields (``_wide_field``) with the grid's own
+    tables (po >= 0): bit-equal to the single form, whose function it then
+    computes, and to its plain version.  There its exit fires: in the host
+    model of its schedule (``tools/pruned_model.py::pass2_two_centre_out``,
+    bit-equal too) no warp takes more taps than in the single form's
+    schedule with the rows' flags, and the warps take fewer than every tap
+    wherever the field has coast."""
+    k = 387
+    assert k > pass2_min_two_limits()
+    grid, c = _wide_field(kind, k, np.random.default_rng(k))
+    tabs = device_tables(grid, k, dev)
+    cpad = pad_coast(torch.as_tensor(c, device=dev), k)
+    mmin, mmax = pass1_extrema(cpad, tabs[2], k, need_max=True)
+    sdphi2, po, _ = tabs
+    assert bool((po >= 0).all())
+    ref = pass2_min(mmin, sdphi2, po, k, Mmax=mmax)
+    single = pass2_min_cuda(mmin, sdphi2, po, k,
+                            row_monotone=tabs.row_monotone)
+    torch.testing.assert_close(single, ref, rtol=0, atol=0)
+    got = pass2_min_two_cuda(mmin, mmax, sdphi2, po, k)
+    assert torch.equal(got.view(torch.int32), single.view(torch.int32))
+    h_args = [a.cpu().numpy() for a in (mmin, mmax, sdphi2, po)]
+    amin, taps = pass2_two_centre_out(*h_args, k)
+    np.testing.assert_array_equal(amin, got.cpu().numpy())
+    _, one = pass2_centre_out(h_args[0], *h_args[2:], k,
+                              tabs.row_monotone.cpu().numpy(), band=64)
+    assert (taps <= one).all()
+    if c.any():
+        assert taps.mean() < 2 * 8 * -(-(k + 1) // 8)
 
 
 @pytest.mark.cuda

@@ -3,7 +3,7 @@
 one NVIDIA GPU.
 
     python3 tools/compare_designs.py [--against NAME=DIR ...] [--reps N]
-                                     [--only B1,B2,B3,B4,B5,B6]
+                                     [--only B1,B2,B3,B4,B5,B6,B2two]
                                      [--builds NAME,...]
 
 Builds, with one ``nvcc`` per library, all started together:
@@ -81,6 +81,16 @@ Builds, with one ``nvcc`` per library, all started together:
   large build at every k (its ``LARGE_FROM`` set to 0, written under
   ``build/designs``); both ``pruned_all`` timed beside the
   staged builds at the 1 km and 0.5 km worlds;
+* B2's two-extremum form (``B2two``): ``two_first``, ``tools/designs/
+  pass2_min_two_first.cu``, its builds before the redesign (both strips
+  staged to k = 93, both extrema read a tap, every tap past it);
+  ``two_pruned``, a copy of this tree's ``pass2_min.cu`` whose
+  two-extremum form takes the pruned build with its exit at every k,
+  written under ``build/designs``, which with this tree's route (the
+  staged build wherever its shared memory holds the strips, k <= 93) finds
+  the crossover between the two; ``two_staged_mmin``, ``tools/designs/
+  pass2_min_two_staged_mmin.cu``, a staged build that lost (Mmin alone in
+  a tile whose po are all >= 0), timed where it runs (k <= 93);
 * B6 ``occupancy4`` and ``unroll2``: ``tools/designs/
   halo_exchange_rows_variants.cu``, the port's design held to 64 registers
   (four blocks per SM against two), and with two 16-byte units per lane in
@@ -122,7 +132,12 @@ yardstick ``hybrid``), and on ``chip_smoke.fine_world`` (k = 93) and
 ``first`` runs.  B2 and B3 also on 1024 x 1024 worlds from
 54 N at 0.0045 degrees (``half``, k = 310), 0.0036 (``wide387``, the 0.4
 km world) and 0.00225 (``wide620``), and B2 at ``km``; there the pass-2
-routine takes the rows' flags of ``device_tables``.  ``--builds`` keeps
+routine takes the rows' flags of ``device_tables``.  B2's two-extremum
+form on ``chip_smoke.two_extremum_inputs`` (pass 1's extrema of the main
+world's coast) at k = 6, 15, 31, 62, 93, 155 and 387 and at 0.1 degrees
+(k = 15), each with po drawn from [-1, 1] (``random@k``) and with the
+grid's own po (``grid@k``), where the single form (this tree's, with the
+rows' flags) is timed beside it as the yardstick ``single``.  ``--builds`` keeps
 only the named builds (the parent's and this tree's are always kept).
 Imports nothing of JAX.
 """
@@ -130,6 +145,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import functools
 import json
 import os
 import re
@@ -234,13 +250,36 @@ def builds(against):
     for name, flags in PRUNED_OPTIONS.items():
         b2[name] = (DESIGNS / "pass2_pruned_variants.cu", flags)
     b3["pruned_all"] = (large_everywhere(), ("-I", str(CSRC)))
+    b2two = {"this": (CSRC / "pass2_min.cu", ()),
+             "two_first": (DESIGNS / "pass2_min_two_first.cu", ())}
+    for name, root in against.items():
+        b2two[name] = (Path(root) / "seabreeze_param_tpu_torch" / "csrc" /
+                       "pass2_min.cu", ())
+    b2two["two_pruned"] = (pruned_everywhere(), ("-I", str(CSRC)))
+    b2two["two_staged_mmin"] = (DESIGNS / "pass2_min_two_staged_mmin.cu", ())
     rows = DESIGNS / "halo_exchange_rows_variants.cu"
     b6["occupancy4"] = (rows, ("-DSBZ_HALO_MIN_BLOCKS=4",))
     b6["unroll2"] = (rows, ("-DSBZ_HALO_UNROLL=2",))
     gather = DESIGNS / "halo_exchange_gather.cu"
     b6["gather"] = (gather, ())
     b6["gather_rows8"] = (gather, ("-DSBZ_HALO_ROWS=8",))
-    return {"B2": b2, "B1": b1, "B3": b3, "B6": b6}
+    return {"B2": b2, "B1": b1, "B3": b3, "B6": b6, "B2two": b2two}
+
+
+def pruned_everywhere():
+    """A copy of this tree's ``csrc/pass2_min.cu`` whose two-extremum form
+    takes its pruned build at every k (its tests of ``k > MAX_STAGED_K2``,
+    in the launcher and its scratch, made true), written under
+    :data:`OUT`."""
+    test = "k > MAX_STAGED_K2"
+    src = (CSRC / "pass2_min.cu").read_text()
+    if src.count(test) != 2:
+        raise RuntimeError(f"pass2_min.cu no longer routes by {test!r} "
+                           "in two places")
+    OUT.mkdir(parents=True, exist_ok=True)
+    path = OUT / "pass2_min_two_pruned_everywhere.cu"
+    path.write_text(src.replace(test, "k >= 0"))
+    return path
 
 
 def large_everywhere():
@@ -293,6 +332,10 @@ def build_all(table):
                 if fn == "sbz_pass2_min" and not hasattr(
                         lib, "sbz_pass2_min_layout"):
                     args = args[:3] + args[4:]
+                # the two-extremum launcher from before its scratch
+                if fn == "sbz_pass2_min_two" and not hasattr(
+                        lib, "sbz_pass2_min_two_scratch"):
+                    args = args[:-2] + args[-1:]
 
                 # ring launchers from before their scratch argument, B3's
                 # from before its monotone flags
@@ -403,6 +446,71 @@ def b2_case(name):
         make_call(lib)()
         return bool(torch.equal(out, ref))
     return check, make_call
+
+
+#: B2's two-extremum form: (world, k) of each timed size, the main world's
+#: coast at the radii where its builds cross over, and 0.1 deg's own k.
+TWO_SIZES = [("global025", k) for k in (6, 15, 31, 62, 93, 155, 387)] + [
+    ("global010", 15)]
+
+
+@functools.cache
+def two_world(name):
+    """(grid, lsm, first step's sea ice) of the smoke's main world or of
+    0.1 deg's ``bench.make_world`` field."""
+    from bench import make_world
+    if name == "global025":
+        grid, (lsm, *_, ci) = cs.main_world()
+    else:
+        grid = cs.world_grid(name)[0]
+        lsm, *_, ci = make_world(grid.nlat, grid.nlon, 1, 1, seed=3)
+    return grid, lsm, ci[0]
+
+
+def b2two_case(name, k, kind):
+    """(check, make_call, yardsticks) for B2's two-extremum form on world
+    ``name`` at radius ``k`` with po of ``kind`` (``random`` or ``grid``);
+    with the grid's po the yardstick ``single``, this tree's single form
+    (its rows' flags) on the same Mmin."""
+    import torch
+    from seabreeze_param_tpu_torch.ops.cuda.distance_kernel import (
+        pass2_min_cuda)
+    from seabreeze_param_tpu_torch.ops.distance import pass2_min
+    dev = torch.device("cuda")
+    mmin, mmax, sdphi2, pos, rows = cs.two_extremum_inputs(
+        *two_world(name), k, dev)
+    po = pos[kind]
+    h, w = mmin.shape[0] - 2 * k, mmin.shape[1]
+    ref = pass2_min(mmin, sdphi2, po, k, Mmax=mmax)
+    out = torch.empty((h, w), device=dev)
+
+    def make_call(lib):
+        # this tree's launcher takes its scratch (the parent's none)
+        scratch, buf = (), None
+        if hasattr(lib, "sbz_pass2_min_two_scratch"):
+            floats = ctypes.c_longlong(0)
+            lib.sbz_pass2_min_two_scratch(h, w, k, ctypes.byref(floats))
+            if floats.value:
+                buf = torch.empty(floats.value, device=dev)
+            scratch = (None if buf is None else buf.data_ptr(),)
+
+        def call(buf=buf):
+            err = lib.sbz_pass2_min_two(
+                mmin.data_ptr(), mmax.data_ptr(), sdphi2.data_ptr(),
+                po.data_ptr(), out.data_ptr(), h, w, k, *scratch, stream())
+            assert err == 0, f"sbz_pass2_min_two: cudaError_t {err}"
+        return call
+
+    def check(lib):
+        out.fill_(float("nan"))
+        make_call(lib)()
+        return bool(torch.equal(out.view(torch.int32),
+                                ref.view(torch.int32)))
+
+    yard = None if kind != "grid" else {
+        "single": lambda: pass2_min_cuda(mmin, sdphi2, po, k,
+                                         row_monotone=rows)}
+    return check, make_call, yard
 
 
 def b3_case(name):
@@ -847,7 +955,7 @@ def main():
                     metavar="NAME=DIR",
                     help="another checkout whose csrc/ is also built")
     ap.add_argument("--reps", type=int, default=30)
-    ap.add_argument("--only", default="B1,B2,B3,B4,B5,B6",
+    ap.add_argument("--only", default="B1,B2,B3,B4,B5,B6,B2two",
                     help="comma-separated kernels to time")
     ap.add_argument("--builds", default=None,
                     help="comma-separated builds to keep (default: all)")
@@ -864,7 +972,7 @@ def main():
     against = dict(a.split("=", 1) for a in args.against)
     table = builds(against)
     need = {"B1": "B1", "B4": "B1", "B5": "B1", "B2": "B2", "B3": "B3",
-            "B6": "B6"}
+            "B6": "B6", "B2two": "B2two"}
     table = {k: v for k, v in table.items()
              if any(need[o] == k for o in only)}
     if args.builds:
@@ -937,6 +1045,13 @@ def main():
              for size in ("half", "wide387", "wide620")]
     plan += [("B3", "B3", size, lambda z=size: b3_case(z),
               ["this", *against, "ring"]) for size in ("wide387", "wide620")]
+    # the two-extremum form: the staged build only where it fits
+    plan += [("B2two", "B2two", f"{kind}@{k}" + ("" if world == "global025"
+                                                  else f"@{world}"),
+              lambda w=world, k=k, kind=kind: b2two_case(w, k, kind),
+              ["this", *against, "two_first", "two_pruned"]
+              + (["two_staged_mmin"] if k <= 93 else []))
+             for world, k in TWO_SIZES for kind in ("random", "grid")]
     for kern, group, size, case, names in plan:
         if kern not in only:
             continue

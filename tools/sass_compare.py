@@ -4,7 +4,8 @@ code: for each kernel whose mangled name matches a pattern, its SASS
 (``cuobjdump -sass``) in library A against library B, instruction for
 instruction, with the addresses and the kernel's own name left out.
 
-    python3 tools/sass_compare.py LIB_A LIB_B PATTERN [PATTERN ...]
+    python3 tools/sass_compare.py [--rename-b OLD=NEW ...] LIB_A LIB_B
+                                  PATTERN [PATTERN ...]
 
 e.g. the ring kernels' small builds of this tree and of a parent checkout,
 as built by ``tools/compare_designs.py``:
@@ -12,6 +13,15 @@ as built by ``tools/compare_designs.py``:
     python3 tools/sass_compare.py build/designs/lib_B1_this.so \\
         build/designs/lib_B1_parent.so 'ring_kernelILi[012]ELi4ELi3E' \\
         'ring_kernelILi[012]ELi9ELi5E'
+
+``--rename-b OLD=NEW`` rewrites library B's kernel names (a regular
+expression and its replacement) before they are paired, for a kernel whose
+mangled name changed with its signature only, e.g. B2's pass-2 routine,
+which gained a last parameter that its single form never reads:
+
+    python3 tools/sass_compare.py --rename-b 'iPfiii$=iPfiiiS3_' \
+        build/designs/lib_B2_this.so build/designs/lib_B2_parent.so \
+        'pass2_pruned_kernelILb0E'
 
 Prints one line per kernel (identical, or the first differing line) and
 exits 1 when a kernel differs or is missing from either library.  Needs the
@@ -53,10 +63,17 @@ def kernels(lib: str) -> dict[str, list[str]]:
 
 
 def main(argv) -> int:
+    renames = []
+    while argv[:1] == ["--rename-b"] and len(argv) > 1:
+        old, new = argv[1].split("=", 1)
+        renames.append((re.compile(old), new))
+        argv = argv[2:]
     if len(argv) < 3:
         print(__doc__, file=sys.stderr)
         return 2
     a, b = kernels(argv[0]), kernels(argv[1])
+    for old, new in renames:
+        b = {old.sub(new, n): sass for n, sass in b.items()}
     bad = 0
     for pat in argv[2:]:
         names = sorted(n for n in set(a) | set(b) if re.search(pat, n))

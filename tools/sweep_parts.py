@@ -32,9 +32,9 @@ import numpy as np  # noqa: E402
 import chip_smoke as cs  # noqa: E402
 
 
-def kernel_times(call):
+def kernel_times(call, names=r"sweep_\w+|land_\w+|Memset|Memcpy"):
     """{kernel name: (launches, device µs)} of one call under
-    ``torch.profiler``."""
+    ``torch.profiler``, each name shortened to its match of ``names``."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -48,7 +48,7 @@ def kernel_times(call):
     for e in prof.events():
         if e.device_type != DeviceType.CUDA:
             continue
-        m = re.search(r"sweep_\w+|land_\w+|Memset|Memcpy", e.name)
+        m = re.search(names, e.name)
         name = m.group(0) if m else e.name[:40]
         n, t = out.get(name, (0, 0.0))
         out[name] = (n + 1, t + e.device_time)
