@@ -1,0 +1,8 @@
+"""device_idle_share.diag (layer ``device``): the share of the traced
+window in which no operation ran on the card, 1 - the union of the device
+events' intervals over the window.  Moves ``diag_ms_per_step``."""
+from portbench import readers
+
+
+def read(run):
+    return readers.idle_share(run)
