@@ -40,8 +40,9 @@ import torch
 from .core.grid import Grid
 from .core.params import Params
 from .core.state import TriggerState
-from .models.pipeline import TriggerPipeline
+from .models.pipeline import TriggerPipeline, _f32
 from .ops.ring_search import required_ring_radius_host
+from .utils.tracing import tracer
 
 _PARAM_KEYS = ("target_plev", "thresh_wind", "thresh_winddir",
                "thresh_windch", "thresh_thc", "target_time", "timestep",
@@ -162,6 +163,14 @@ def _run_multihost(pipe, mesh, devices, key, state, t, u, v, lsm, z, std,
                    for k, o in outs.items()}
 
 
+def _to_host(t, site: str):
+    """A device tensor read back as a host float32 array, under the span
+    ``wait:<site>``: the host waits here for the device."""
+    with tracer.hook(f"wait:{site}"):
+        return t.detach().cpu().numpy()
+
+
+@tracer.span("api:diag")
 def diag(tt, lsm, z, std, lon, lat, pres, *args, **kwargs):
     """See the module docstring and the reference docstring
     (``__init__.py:92-188``).
@@ -258,43 +267,50 @@ def diag(tt, lsm, z, std, lon, lat, pres, *args, **kwargs):
     # measures the same global field).  Sticky per grid: a bound >= the
     # one needed is reused, since wider rings change nothing once both
     # classes have latched.
-    lsm_d = torch.as_tensor(np.asarray(lsm, np.float32), device=device)
-    ci0 = None if ci is None else torch.as_tensor(
-        _fill(ci[...] if single else ci[0]), device=device)
-    cdist0 = pipe.distance_field(lsm_d, ci0).cpu().numpy()
-    needed = needed_ring_nn(pipe, cdist0)
-    nn_key = base_key + ("ring_nn",)
-    prev_nn = _CACHE.get(nn_key)
-    ring_nn = prev_nn if prev_nn is not None and prev_nn >= needed \
-        else int(needed)
-    _cache_put(nn_key, ring_nn)
+    with tracer.hook("api:probe"):
+        lsm_d = _f32(lsm, device)
+        ci0 = None if ci is None else _f32(
+            _fill(ci[...] if single else ci[0]), device)
+        cdist0 = _to_host(pipe.distance_field(lsm_d, ci0), "probe_readback")
+        needed = needed_ring_nn(pipe, cdist0)
+        nn_key = base_key + ("ring_nn",)
+        prev_nn = _CACHE.get(nn_key)
+        ring_nn = prev_nn if prev_nn is not None and prev_nn >= needed \
+            else int(needed)
+        _cache_put(nn_key, ring_nn)
     pipe = _cached_pipeline(base_key + ("ring", ring_nn), lambda:
                             TriggerPipeline(grid=grid, params=params,
                                             ring_nn=ring_nn, device=device,
                                             use_kernels=use_kernels))
 
-    if multihost:
-        final, outs = _run_multihost(pipe, mesh, mesh_devices,
-                                     base_key + (ring_nn,), state, t, u, v,
-                                     lsm, z, std, pres, ci, single)
-    else:
-        u = np.asarray(u[...], np.float32)
-        v = np.asarray(v[...], np.float32)
-        t = np.asarray(t[...], np.float32)
-        ci = _fill(None if ci is None else ci[...])
-        if single:
-            u, v, t = u[None], v[None], t[None]
-            if ci is not None:
-                ci = ci[None]
-        if mesh is not None:
-            from .parallel.sharded import ShardedPipeline
-            run_pipe = pipe
-            pipe = _cached_pipeline(
-                base_key + ("sharded", ring_nn, mesh.shape, mesh.devices),
-                lambda: ShardedPipeline(run_pipe, mesh))
-        final, outs = pipe.run(state, t, u, v, lsm_d, z, std, pres, ci_t=ci)
-    _, thc_o, ws_o, wd_o = final.to_numpy()
-    ret = (tt + T, outs["sb_con"].cpu().numpy(), thc_o, ws_o, wd_o)
-    if full_output:
-        return ret + ({k: o.cpu().numpy() for k, o in outs.items()},)
-    return ret
+    with tracer.hook("api:run"):
+        if multihost:
+            final, outs = _run_multihost(pipe, mesh, mesh_devices,
+                                         base_key + (ring_nn,), state, t, u,
+                                         v, lsm, z, std, pres, ci, single)
+        else:
+            u = np.asarray(u[...], np.float32)
+            v = np.asarray(v[...], np.float32)
+            t = np.asarray(t[...], np.float32)
+            ci = _fill(None if ci is None else ci[...])
+            if single:
+                u, v, t = u[None], v[None], t[None]
+                if ci is not None:
+                    ci = ci[None]
+            if mesh is not None:
+                from .parallel.sharded import ShardedPipeline
+                run_pipe = pipe
+                pipe = _cached_pipeline(
+                    base_key + ("sharded", ring_nn, mesh.shape, mesh.devices),
+                    lambda: ShardedPipeline(run_pipe, mesh))
+            final, outs = pipe.run(state, t, u, v, lsm_d, z, std, pres,
+                                   ci_t=ci)
+    with tracer.hook("api:outputs"):
+        thc_o, ws_o, wd_o = (_to_host(a, "state_readback") for a in (
+            final.thc, final.windspeed, final.winddir))
+        ret = (tt + T, _to_host(outs["sb_con"], "output_readback"), thc_o,
+               ws_o, wd_o)
+        if full_output:
+            return ret + ({k: _to_host(o, "output_readback")
+                           for k, o in outs.items()},)
+        return ret

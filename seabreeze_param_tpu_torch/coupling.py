@@ -94,12 +94,13 @@ class CoupledTrigger:
         the device, the UM routine's ``mask`` argument."""
         pipe = self.pipeline()
         dev = torch.device(self.device)
-        lsm = _f32(land_frac, dev)
-        ci = None if ice_frac is None else _f32(ice_frac, dev)
-        with self._tracer().hook("coupling:get_edges"):
+        tracer = self._tracer()
+        lsm = _f32(land_frac, dev, tracer)
+        ci = None if ice_frac is None else _f32(ice_frac, dev, tracer)
+        with tracer.hook("coupling:get_edges"):
             coast = get_edges(lsm, ci,
                               exact_lon=self.params.exact_lon_indexing)
-        with self._tracer().hook("coupling:get_dist"):
+        with tracer.hook("coupling:get_dist"):
             return pipe.distance_from_coast(coast, lsm)
 
     # ------------------------------------------------------------------
@@ -113,14 +114,16 @@ class CoupledTrigger:
         Fields as arrays or tensors; ``state`` is not modified.  Returns
         ``(new_state, outputs)`` like ``TriggerPipeline.step``.
         """
-        pipe = self.pipeline()
-        dev = torch.device(self.device)
-        p, u, v, theta, z, sigma, mask = (
-            _f32(a, dev) for a in (p, u, v, theta, z, sigma, mask))
-        state = TriggerState(tt=int(state.tt), thc=_f32(state.thc, dev),
-                             windspeed=_f32(state.windspeed, dev),
-                             winddir=_f32(state.winddir, dev))
-        with self._tracer().hook("coupling:seabreeze_diag"):
+        tracer = self._tracer()
+        with tracer.hook("coupling:seabreeze_diag"):
+            pipe = self.pipeline()
+            dev = torch.device(self.device)
+            p, u, v, theta, z, sigma, mask, thc, ws, wd = (
+                _f32(a, dev, tracer) for a in (
+                    p, u, v, theta, z, sigma, mask, state.thc,
+                    state.windspeed, state.winddir))
+            state = TriggerState(tt=int(state.tt), thc=thc, windspeed=ws,
+                                 winddir=wd)
             return trigger_step(state, theta, u, v, mask, z, sigma, p,
                                 self.params, pipe.nn_max,
                                 use_kernels=pipe.kernels)

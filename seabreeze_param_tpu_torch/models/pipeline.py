@@ -26,15 +26,30 @@ from ..ops.coastline import get_edges
 from ..ops.distance import coast_distance, device_tables, effective_radius
 from ..ops.orography import sigmoid_weight
 from ..ops.trigger import trigger_step, trigger_step_stacked
+from ..utils.tracing import tracer as _default_tracer
 
 
-def _f32(a, device):
+def _f32(a, device, tracer=None):
     """A float32 tensor on ``device`` (None: where ``a`` already is).  Host
     arrays become native float32 first: classic netCDF read through scipy
-    is big-endian (``>f4``), which ``torch.as_tensor`` refuses."""
+    is big-endian (``>f4``), which ``torch.as_tensor`` refuses.
+
+    The port's moves of host fields and state to its device go through
+    here, and each adds its float32 bytes to the counter ``h2d_bytes`` of
+    ``tracer`` (default: the process-global one): a host array taken onto
+    ``device`` (onto a CPU device too, where it is taken in place, so that
+    the CPU counts what the card moves), or a CPU tensor moved to another
+    device.  A tensor already on ``device``, or ``device`` None, counts 0."""
     if not isinstance(a, torch.Tensor):
         a = np.asarray(a, np.float32)
-    return torch.as_tensor(a, dtype=torch.float32, device=device)
+        moved = device is not None
+    else:
+        moved = (device is not None and a.device.type == "cpu"
+                 and torch.device(device).type != "cpu")
+    t = torch.as_tensor(a, dtype=torch.float32, device=device)
+    if moved:
+        (tracer or _default_tracer).count("h2d_bytes", t.numel() * 4)
+    return t
 
 
 @dataclass(frozen=True)
@@ -100,12 +115,14 @@ class TriggerPipeline:
                               k=self.k, tables=self._tables(), impl=impl,
                               lon_form=self.distance_lon_form)
 
+    @_default_tracer.span("pipeline:distance")
     def distance_field(self, lsm, ci=None):
         """Coastline + signed coast distance for one (lsm, sea-ice) pair of
         float32 tensors on the pipeline's device."""
         coast = get_edges(lsm, ci, exact_lon=self.params.exact_lon_indexing)
         return self.distance_from_coast(coast, lsm)
 
+    @_default_tracer.span("pipeline:step")
     def step(self, state: TriggerState, theta, u, v, lsm, z, std, pres,
              ci=None, smod=None):
         """One full timestep (distance rebuild + trigger), kernel B4 on the
@@ -135,15 +152,16 @@ class TriggerPipeline:
         nlon) tensors ``sb_con``, ``t0``, ``windspeed``, ``winddir``.
         """
         dev = torch.device(self.device)
-        lsm, z, std, pres = (_f32(a, dev) for a in (lsm, z, std, pres))
-        theta_t, u_t, v_t = (_f32(a, dev) for a in (theta_t, u_t, v_t))
-        ci_t = None if ci_t is None else _f32(ci_t, dev)
+        with _default_tracer.hook("pipeline:inputs"):
+            lsm, z, std, pres = (_f32(a, dev) for a in (lsm, z, std, pres))
+            theta_t, u_t, v_t = (_f32(a, dev) for a in (theta_t, u_t, v_t))
+            ci_t = None if ci_t is None else _f32(ci_t, dev)
+            st = TriggerState(tt=int(state.tt), thc=_f32(state.thc, dev),
+                              windspeed=_f32(state.windspeed, dev).clone(),
+                              winddir=_f32(state.winddir, dev).clone())
         T, nlat, nlon = theta_t.shape
         params, NN = self.params, self.nn_max
 
-        st = TriggerState(tt=int(state.tt), thc=_f32(state.thc, dev),
-                          windspeed=_f32(state.windspeed, dev).clone(),
-                          winddir=_f32(state.winddir, dev).clone())
         smod = sigmoid_weight(std)
         cdist = None if ci_t is not None else self.distance_field(lsm)
         t0s = torch.empty((T, nlat, nlon), dtype=torch.float32, device=dev)
@@ -157,18 +175,19 @@ class TriggerPipeline:
             sb_b, ws_b, wd_b = (torch.empty_like(t0s) for _ in range(3))
 
         for t in range(T):
-            if ci_t is not None:
-                cdist = self.distance_field(lsm, ci_t[t])
-            step = (theta_t[t], u_t[t], v_t[t], cdist, z, std, pres, params,
-                    NN)
-            if self.kernels:
-                st, t0s[t] = trigger_step_stacked(
-                    st, *step, t, sb_b, ws_b, wd_b, scan.add_coastal(cdist),
-                    smod=smod)
-            else:
-                st, out = trigger_step(st, *step, smod=smod,
-                                       use_kernels=False)
-                sb_b[t], t0s[t] = out["sb_con"], out["t0"]
-                ws_b[t], wd_b[t] = out["windspeed"], out["winddir"]
+            with _default_tracer.hook("pipeline:step"):
+                if ci_t is not None:
+                    cdist = self.distance_field(lsm, ci_t[t])
+                step = (theta_t[t], u_t[t], v_t[t], cdist, z, std, pres,
+                        params, NN)
+                if self.kernels:
+                    st, t0s[t] = trigger_step_stacked(
+                        st, *step, t, sb_b, ws_b, wd_b,
+                        scan.add_coastal(cdist), smod=smod)
+                else:
+                    st, out = trigger_step(st, *step, smod=smod,
+                                           use_kernels=False)
+                    sb_b[t], t0s[t] = out["sb_con"], out["t0"]
+                    ws_b[t], wd_b[t] = out["windspeed"], out["winddir"]
         return st, {"sb_con": sb_b, "t0": t0s, "windspeed": ws_b,
                     "winddir": wd_b}

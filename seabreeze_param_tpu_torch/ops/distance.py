@@ -33,6 +33,7 @@ import torch
 import torch.nn.functional as F
 
 from ..core.grid import DEG2RAD_F32, EARTH_RADIUS_KM, Grid
+from ..utils.tracing import tracer
 from .indexing import lon_index_periodic, pad_indices
 
 BIG_PARAM = np.float32(1.0e30)
@@ -85,8 +86,9 @@ def effective_radius(grid: Grid, maxdist: float, k: int | None = None) -> int:
 def pad_coast(coast, k: int):
     """Zero rows beyond the lat edges, periodic columns: (h+2k, w+2k)."""
     cols = pad_indices(coast.shape[1], k, lon_index_periodic)
-    return F.pad(coast, (0, 0, k, k)).index_select(
-        1, torch.as_tensor(cols, device=coast.device))
+    with tracer.hook("wait:pad_coast_index"):   # a pageable upload
+        cols = torch.as_tensor(cols, device=coast.device)
+    return F.pad(coast, (0, 0, k, k)).index_select(1, cols)
 
 
 def pass1_extrema(cpad, sdlam2, k: int, *, need_max: bool = False):

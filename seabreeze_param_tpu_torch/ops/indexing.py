@@ -19,6 +19,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils.tracing import tracer
+
 
 def lat_index_clamped(i, nlat: int):
     """0-based row map for the Fortran clamp min(max(1, i+1), nlat)."""
@@ -45,7 +47,9 @@ def pad_indices(n: int, pad: int, index_map) -> np.ndarray:
 
 def _take(field, dim: int, idx: np.ndarray):
     """Gather for degenerate pads (pad wider than the axis)."""
-    return field.index_select(dim, torch.as_tensor(idx, device=field.device))
+    with tracer.hook("wait:pad_take_index"):    # a pageable upload
+        idx = torch.as_tensor(idx, device=field.device)
+    return field.index_select(dim, idx)
 
 
 def pad2d(field, pad_lat: int, pad_lon: int, *, exact_lon: bool = True):

@@ -25,6 +25,8 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.tracing import tracer
+
 
 def sigmoid_weight(std_field, *, valid_mask=None):
     """Logistic weight of a (nlat, nlon) float32 std-orography tensor;
@@ -69,7 +71,8 @@ def sigmoid_weight_shards(stds, valid_masks, gather=None):
         counts = part[:, 0].long()
         sums, maxes, mins = (part[:, i].float().contiguous()
                              for i in (1, 2, 3))
-    n = float(int(counts.sum()))
+    with tracer.hook("wait:sigmoid_count"):     # a read-back
+        n = float(int(counts.sum()))
     total, amax, amin = sums.sum(), maxes.max(), mins.min()
     mean = total / n
     sq = stack([torch.where(vm, (a - mean.to(a.device)) ** 2, 0.0).sum()

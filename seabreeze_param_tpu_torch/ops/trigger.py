@@ -30,6 +30,7 @@ import torch
 
 from ..core.params import GMMA, MISSING_VALUE, RAD2DEG_TRIGGER, Params
 from ..core.state import TriggerState
+from ..utils.tracing import tracer
 from .indexing import pad2d
 from .orography import sigmoid_weight
 from .ring_search import ring_quantities, ring_thc_from_padded
@@ -132,6 +133,7 @@ def trigger_cells(cdist, ws_new, wd_new, ws_state, wd_state, t0_pad, cd_pad,
             torch.where(row_ok, wd_o, wd_state))
 
 
+@tracer.span("trigger:ring")
 def trigger_core(state: TriggerState, t0, cdist, ws_new, wd_new, t0_pad,
                  cd_pad, params: Params, nn_max: int, *, row_offset: int = 0,
                  nlat_total: int | None = None,
@@ -172,6 +174,7 @@ def trigger_core(state: TriggerState, t0, cdist, ws_new, wd_new, t0_pad,
                        "winddir": out_wd}
 
 
+@tracer.span("trigger:prepare")
 def prepare_step(theta, u, v, cdist, z, std, pres, params: Params,
                  nn_max: int, smod=None):
     """t0, the wind at the target level and the NN-padded ring inputs."""
@@ -196,6 +199,7 @@ def trigger_step(state: TriggerState, theta, u, v, cdist, z, std, pres,
                         params, nn_max, use_kernels=use_kernels)
 
 
+@tracer.span("trigger:ring")
 def trigger_core_stacked(state: TriggerState, t0, cdist, ws_new, wd_new,
                          t0_pad, cd_pad, params: Params, nn_max: int,
                          step_idx: int, sb_buf, ws_buf, wd_buf, ever, *,

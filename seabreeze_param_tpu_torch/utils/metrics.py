@@ -4,8 +4,8 @@
 The reference's observability is stdout progress lines
 (``test_run.py:24-25``) and CF metadata on outputs.  Here: a structured
 per-step metrics recorder — throughput (grid-points/s), wall time — emitted
-as JSON lines with the JAX package's keys, and the card's memory use from
-``torch.cuda.memory_stats``.
+as JSON lines with the JAX package's keys.  The card's peak memory is
+``torch.cuda.max_memory_allocated``.
 """
 from __future__ import annotations
 
@@ -13,8 +13,6 @@ import json
 import sys
 import time
 from dataclasses import dataclass, field
-
-import torch
 
 
 @dataclass
@@ -77,17 +75,3 @@ class _Timed:
     def __exit__(self, *exc):
         self.m.record(time.perf_counter() - self.t0)
 
-
-def device_memory_stats() -> dict:
-    """Bytes allocated by torch now and at peak, per visible card:
-    ``{"0": {"bytes_in_use": ..., "peak_bytes_in_use": ...}, ...}`` (the
-    JAX package's keys); {} without a card."""
-    if not torch.cuda.is_available():
-        return {}
-    out = {}
-    for i in range(torch.cuda.device_count()):
-        s = torch.cuda.memory_stats(i)
-        out[str(i)] = {
-            "bytes_in_use": int(s.get("allocated_bytes.all.current", 0)),
-            "peak_bytes_in_use": int(s.get("allocated_bytes.all.peak", 0))}
-    return out

@@ -454,7 +454,7 @@ def test_watchdog_detects_stall():
 
 
 def test_step_metrics_and_memory_stats():
-    """The JAX package's JSON keys; no card, no memory stats."""
+    """The JAX package's JSON keys."""
     from seabreeze_param_tpu.utils.metrics import StepMetrics as JMetrics
     lines = []
     for cls in (tmetrics.StepMetrics, JMetrics):
@@ -469,4 +469,3 @@ def test_step_metrics_and_memory_stats():
     assert lines[0].keys() == lines[1].keys()
     assert lines[0]["steps"] == 3 and lines[0]["points_per_s"] > 0
     assert lines[0]["halo_bytes"] == 42
-    assert tmetrics.device_memory_stats() == {}
