@@ -28,6 +28,13 @@ multihost_shape``), each process's block lies over its ``device`` (one
 device, or a list: one group of shards per entry), each process reads
 only its own rows of lazy netCDF handles, and every process returns the
 global fields, gathered over the process group.
+
+With 1-D pressure the trigger reads u and v at one level, the same for
+every cell and step: ``diag`` picks it on the host
+(:func:`ops.trigger.nearest_level`, the device's own rule) and reads and
+moves only that level, with ``pres`` at it; the counter
+``h2d_bytes_skipped`` counts the float32 bytes of the levels left behind.
+With 3-D pressure the level is picked per column, and every level moves.
 """
 from __future__ import annotations
 
@@ -42,6 +49,7 @@ from .core.params import Params
 from .core.state import TriggerState
 from .models.pipeline import TriggerPipeline, _f32
 from .ops.ring_search import required_ring_radius_host
+from .ops.trigger import nearest_level
 from .utils.tracing import tracer
 
 _PARAM_KEYS = ("target_plev", "thresh_wind", "thresh_winddir",
@@ -116,15 +124,22 @@ def needed_ring_nn(pipe: TriggerPipeline, cdist0) -> int:
                    + params.ring_search_margin))
 
 
+def _count_skipped(nlev, u, v):
+    """Count the float32 bytes of the nlev - 1 levels of u, v and pres that
+    a call reading one level (``u``, ``v``) did not move."""
+    tracer.count("h2d_bytes_skipped", (nlev - 1) * (u.nbytes + v.nbytes + 4))
+
+
 def _run_multihost(pipe, mesh, devices, key, state, t, u, v, lsm, z, std,
-                   pres, ci, single):
+                   pres, ci, single, lev):
     """The multi-process run (the reference's decomposed MPI run,
     ``UM/vn10.7/sea_breeze_diag.F90:408-410``): a
     :class:`parallel.distributed.DistributedRunner` over this process's
     block of the global mesh, laid over ``devices`` (a list: one group of
     shards per entry; else the pipeline's device), fed this process's rows
     only (``t``, ``u``, ``v`` and ``ci`` may be lazy netCDF handles, read
-    over those rows), its outputs gathered back to the global grid on every
+    over those rows; ``u`` and ``v`` at the one level ``lev`` unless it is
+    None), its outputs gathered back to the global grid on every
     process."""
     from .parallel import distributed as pdist
     from .parallel.mesh import ShardMesh, parse_shape
@@ -140,19 +155,25 @@ def _run_multihost(pipe, mesh, devices, key, state, t, u, v, lsm, z, std,
             pipe, pdist.make_multihost_mesh(shape, device=devices))))
     lo, hi = runner.row_lo, min(runner.row_hi, runner.sp.nlat_real)
 
-    def slab(a, lead_t=False):
+    def slab(a, lead_t=False, level=None):
         """This process's rows of a field, read from disk for a lazy
-        handle; ``lead_t`` adds the time axis of a single-step input."""
-        nd = len(np.shape(a))
-        x = a[(slice(None),) * (nd - 2) + (slice(lo, hi), slice(None))]
+        handle; ``lead_t`` adds the time axis of a single-step input;
+        ``level`` takes that one level of u or v in the same indexing."""
+        lead = (slice(None),) * (len(np.shape(a)) - 2)
+        if level is not None:
+            lead = lead[:-1] + (slice(level, level + 1),)
+        x = a[lead + (slice(lo, hi), slice(None))]
         x = np.asarray(x.filled(0) if hasattr(x, "filled") else x,
                        np.float32)
         return x[None] if lead_t and single else x
 
+    u_b, v_b = slab(u, True, lev), slab(v, True, lev)
+    if lev is not None:
+        _count_skipped(np.shape(u)[-3], u_b, v_b)
     final, outs = runner.run(
         TriggerState(state.tt, slab(state.thc), slab(state.windspeed),
                      slab(state.winddir)),
-        slab(t, True), slab(u, True), slab(v, True), slab(lsm), slab(z),
+        slab(t, True), u_b, v_b, slab(lsm), slab(z),
         slab(std), slab(pres) if np.ndim(pres) == 3 else pres,
         ci_t=None if ci is None else slab(ci, True))
     span, nlat = runner.row_hi - runner.row_lo, runner.sp.nlat_real
@@ -261,6 +282,16 @@ def diag(tt, lsm, z, std, lon, lat, pres, *args, **kwargs):
         raise ValueError(
             "diag input shapes inconsistent with (lon, lat, pres) — "
             + "; ".join(problems))
+    # 1-D pressure: the one level the trigger reads, picked here by the
+    # device's rule on the same float32 values, so the device, given that
+    # level alone, picks it again; 3-D pressure: every level
+    lev, levels = None, (Ellipsis,)
+    if pres_arr.ndim == 1:
+        pres = np.asarray(pres_arr, np.float32)
+        lev = int(nearest_level(torch.tensor(pres), params.target_plev_pa))
+        pres = pres[lev:lev + 1]
+        levels = ((slice(lev, lev + 1),) if single
+                  else (slice(None), slice(lev, lev + 1)))
 
     # Ring-search bound from the first step's distance field, measured on
     # the host (exact for any grid; every process of a multi-process run
@@ -287,10 +318,19 @@ def diag(tt, lsm, z, std, lon, lat, pres, *args, **kwargs):
         if multihost:
             final, outs = _run_multihost(pipe, mesh, mesh_devices,
                                          base_key + (ring_nn,), state, t, u,
-                                         v, lsm, z, std, pres, ci, single)
+                                         v, lsm, z, std, pres, ci, single,
+                                         lev)
         else:
-            u = np.asarray(u[...], np.float32)
-            v = np.asarray(v[...], np.float32)
+            # only these levels are read from a lazy handle, converted
+            # from big-endian, and moved
+            u = np.asarray(u[levels], np.float32)
+            v = np.asarray(v[levels], np.float32)
+            if lev is not None:
+                _count_skipped(nlev, u, v)
+                # a step's level is contiguous where the whole slice is
+                # not: move the steps one by one, so the host gathers none
+                u, v = (torch.stack([_f32(x, device) for x in a])
+                        for a in (u, v))
             t = np.asarray(t[...], np.float32)
             ci = _fill(None if ci is None else ci[...])
             if single:

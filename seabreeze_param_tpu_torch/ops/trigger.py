@@ -41,6 +41,14 @@ def sea_level_temperature(theta, z, smod):
     return theta - (float(GMMA) * z * smod)
 
 
+def nearest_level(pres, target_plev_pa):
+    """The level of 1-D float32 ``pres`` (nlev,) nearest the target
+    pressure: the first argmin of |p - target|, as a (1,) index tensor on
+    ``pres``'s device.  ``api.diag`` runs it on the host to move only that
+    level of u and v; :func:`wind_at_level` on the device."""
+    return torch.argmin((pres - float(target_plev_pa)).abs()).reshape(1)
+
+
 def wind_at_level(u, v, pres, target_plev_pa):
     """Wind speed/direction at the level nearest the target pressure.
 
@@ -48,12 +56,12 @@ def wind_at_level(u, v, pres, target_plev_pa):
     the first argmin of |p - target|, per column for 3-D pressure.  Speed =
     sqrt(u^2 + v^2); direction = atan2(-u, -v) * rad2deg.
     """
-    dist = (pres - float(target_plev_pa)).abs()
     if pres.dim() == 1:
-        p_lev = torch.argmin(dist).reshape(1)
+        p_lev = nearest_level(pres, target_plev_pa)
         ul = u.index_select(0, p_lev)[0]
         vl = v.index_select(0, p_lev)[0]
     else:
+        dist = (pres - float(target_plev_pa)).abs()
         p_lev = torch.argmin(dist, dim=0, keepdim=True)
         ul = torch.gather(u, 0, p_lev)[0]
         vl = torch.gather(v, 0, p_lev)[0]

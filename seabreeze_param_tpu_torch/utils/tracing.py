@@ -24,7 +24,9 @@ Labels are ``layer:phase`` (``api:probe``, ``pipeline:step``,
 statement at which the host waits for the device (a read-back, or the
 upload of a pageable host array between launches).  :meth:`Tracer.count`
 adds to a named counter (``h2d_bytes``: the bytes of host arrays the port
-takes onto its device) under the same switch.
+takes onto its device; ``h2d_bytes_skipped``: the bytes of the u, v and
+pressure levels ``api.diag`` leaves on the host, since the trigger reads
+one) under the same switch.
 
 Also here: :func:`device_info`, the counterpart of the reference's
 ``get_threads`` (``sobel.f90:195-206``).

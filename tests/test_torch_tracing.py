@@ -138,10 +138,14 @@ def test_h2d_bytes_counts_the_host_arrays_moved(world, quiet_tracer):
     assert not quiet_tracer.counters              # no profiler: no count
     _profiled(lambda: _diag(world))
     plane = NLAT * NLON * F4
-    want = (world["u"].nbytes + world["v"].nbytes + world["theta"].nbytes
+    lev = 2                               # 66667 Pa, nearest 700 hPa
+    assert world["pres"][lev] == np.float32(200000.0 / 3)
+    want = (world["u"][:, lev:lev + 1].nbytes      # the level read, alone
+            + world["v"][:, lev:lev + 1].nbytes
+            + world["theta"].nbytes
             + world["ci"].nbytes          # the run's time-varying fields
             + 7 * plane                   # lsm, ci[0], z, std, thc, ws, wd
-            + world["pres"].nbytes)
+            + world["pres"][lev:lev + 1].nbytes)
     assert quiet_tracer.counters["h2d_bytes"] == want
 
     quiet_tracer.reset()
