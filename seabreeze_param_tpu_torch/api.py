@@ -103,13 +103,18 @@ def _fill(ci):
 def ring_radius(cdist0, params: Params, k: int) -> int:
     """:func:`required_ring_radius_host` on a frame widened only as far as
     needed: padded by about 4k cells first, and doubled while the result
-    reaches the frame (a result below the frame width is exact)."""
-    full = max(cdist0.shape)
+    reaches the frame (a result below the frame width is exact).  Each
+    pass runs under the span ``probe:transform`` and adds the cells of its
+    frame to the counter ``probe_frame_cells``."""
+    nlat, nlon = cdist0.shape
+    full = max(nlat, nlon)
     cap = min(full, max(8, 4 * k))
     while True:
-        req = required_ring_radius_host(cdist0, params.maxdist,
-                                        exact_lon=params.exact_lon_indexing,
-                                        cap=cap)
+        tracer.count("probe_frame_cells", (nlat + 2 * cap) * (nlon + 2 * cap))
+        with tracer.hook("probe:transform"):
+            req = required_ring_radius_host(
+                cdist0, params.maxdist, exact_lon=params.exact_lon_indexing,
+                cap=cap)
         if req < cap or cap >= full:
             return req
         cap = min(full, 2 * cap)

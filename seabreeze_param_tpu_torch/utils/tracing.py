@@ -26,7 +26,9 @@ upload of a pageable host array between launches).  :meth:`Tracer.count`
 adds to a named counter (``h2d_bytes``: the bytes of host arrays the port
 takes onto its device; ``h2d_bytes_skipped``: the bytes of the u, v and
 pressure levels ``api.diag`` leaves on the host, since the trigger reads
-one) under the same switch.
+one; ``probe_frame_cells``: the cells of each frame the ring-radius
+probe's host transforms walk, under the span ``probe:transform``) under
+the same switch.
 
 Also here: :func:`device_info`, the counterpart of the reference's
 ``get_threads`` (``sobel.f90:195-206``).
