@@ -48,7 +48,7 @@ from .core.grid import Grid
 from .core.params import Params
 from .core.state import TriggerState
 from .models.pipeline import TriggerPipeline, _f32
-from .ops.ring_search import required_ring_radius_host
+from .ops.ring_search import required_ring_radius
 from .ops.trigger import nearest_level
 from .utils.tracing import tracer
 
@@ -101,20 +101,25 @@ def _fill(ci):
 
 
 def ring_radius(cdist0, params: Params, k: int) -> int:
-    """:func:`required_ring_radius_host` on a frame widened only as far as
+    """:func:`required_ring_radius` on a frame widened only as far as
     needed: padded by about 4k cells first, and doubled while the result
     reaches the frame (a result below the frame width is exact).  Each
-    pass runs under the span ``probe:transform`` and adds the cells of its
-    frame to the counter ``probe_frame_cells``."""
+    pass runs on ``cdist0``'s device (a host array: the CPU) under the span
+    ``probe:transform``, reads back its one integer under
+    ``wait:probe_readback``, and adds the cells of its frame to the counter
+    ``probe_frame_cells``."""
+    cdist0 = torch.as_tensor(cdist0)
     nlat, nlon = cdist0.shape
     full = max(nlat, nlon)
     cap = min(full, max(8, 4 * k))
     while True:
         tracer.count("probe_frame_cells", (nlat + 2 * cap) * (nlon + 2 * cap))
         with tracer.hook("probe:transform"):
-            req = required_ring_radius_host(
+            req = required_ring_radius(
                 cdist0, params.maxdist, exact_lon=params.exact_lon_indexing,
                 cap=cap)
+            with tracer.hook("wait:probe_readback"):
+                req = int(req)
         if req < cap or cap >= full:
             return req
         cap = min(full, 2 * cap)
@@ -123,7 +128,8 @@ def ring_radius(cdist0, params: Params, k: int) -> int:
 def needed_ring_nn(pipe: TriggerPipeline, cdist0) -> int:
     """The ring radius NN ``diag`` needs on ``pipe``'s grid: its static
     bound, or the radius probed on the first step's distance field
-    ``cdist0`` (host array) plus the margin, whichever is larger."""
+    ``cdist0`` (a tensor, on the pipeline's device in ``diag``) plus the
+    margin, whichever is larger."""
     params = pipe.params
     return int(max(pipe.nn_max, ring_radius(cdist0, params, pipe.k)
                    + params.ring_search_margin))
@@ -299,16 +305,15 @@ def diag(tt, lsm, z, std, lon, lat, pres, *args, **kwargs):
                   else (slice(None), slice(lev, lev + 1)))
 
     # Ring-search bound from the first step's distance field, measured on
-    # the host (exact for any grid; every process of a multi-process run
-    # measures the same global field).  Sticky per grid: a bound >= the
-    # one needed is reused, since wider rings change nothing once both
-    # classes have latched.
+    # the device, one integer read back a pass (exact for any grid; every
+    # process of a multi-process run measures the same global field).
+    # Sticky per grid: a bound >= the one needed is reused, since wider
+    # rings change nothing once both classes have latched.
     with tracer.hook("api:probe"):
         lsm_d = _f32(lsm, device)
         ci0 = None if ci is None else _f32(
             _fill(ci[...] if single else ci[0]), device)
-        cdist0 = _to_host(pipe.distance_field(lsm_d, ci0), "probe_readback")
-        needed = needed_ring_nn(pipe, cdist0)
+        needed = needed_ring_nn(pipe, pipe.distance_field(lsm_d, ci0))
         nn_key = base_key + ("ring_nn",)
         prev_nn = _CACHE.get(nn_key)
         ring_nn = prev_nn if prev_nn is not None and prev_nn >= needed \

@@ -81,6 +81,79 @@ def required_ring_radius_host(cdist, maxdist, *, exact_lon: bool = True,
     return int(min(cap, need[target].max()))
 
 
+def required_ring_radius(cdist, maxdist, *, exact_lon: bool = True,
+                         cap: int | None = None):
+    """:func:`required_ring_radius_host` on ``cdist``'s device: the same
+    integer, as a 0-d int64 tensor there, with no host wait.
+
+    On the frame padded by ``cap`` (rows clamped, columns through the
+    quirky or the periodic map), an integral image counts each class in a
+    square of cells with four reads.  A target's need is its Chebyshev
+    distance to the nearest cell of the other class: the least r whose
+    (2r + 1)^2 box around it holds one.  Every cell searches r in [0, cap]
+    at once, halving a fixed range (``ceil(log2(cap + 1))`` rounds, so no
+    branch on the data); a box of radius <= cap lies inside the frame.  As
+    the host function: 1 without a target, 1 where the frame holds one
+    class alone (scipy's transform then gives -1), else the largest need,
+    at most ``cap``.
+    """
+    nlat, nlon = cdist.shape
+    if cap is None:
+        cap = max(nlat, nlon)
+    if cap < 1:
+        raise ValueError(f"cap must be at least 1, got {cap}")
+    dev = cdist.device
+    land = cdist >= 0.0
+    target = cdist.abs() <= float(np.float32(maxdist))
+
+    # the padded frame, through the maps of ops/indexing.py
+    rows = torch.arange(-cap, nlat + cap, device=dev).clamp_(0, nlat - 1)
+    if exact_lon:       # max(1, (j + 1) mod nlon) - 1
+        cols = torch.arange(1 - cap, nlon + cap + 1, device=dev)
+        cols = cols.remainder_(nlon).sub_(1).clamp_min_(0)
+    else:
+        cols = torch.arange(-cap, nlon + cap, device=dev).remainder_(nlon)
+    lpt = land.T[cols[:, None], rows]               # the frame, transposed
+    # integral images of land (plane 0) and sea (plane 1), each with a
+    # leading row and column of zeros.  Both scans run along the innermost
+    # dimension, with a transposing copy between: PyTorch's scan along an
+    # outer one runs a thread a column, ~1.2 ms at 3073 x 3073 on an H100.
+    h1, w1 = nlat + 2 * cap + 1, nlon + 2 * cap + 1
+    S = torch.zeros((2, w1, h1), device=dev, dtype=(
+        torch.int32 if h1 * w1 < 2**31 else torch.int64))
+    S[0, 1:, 1:] = lpt
+    S[1, 1:, 1:] = ~lpt
+    S = S.cumsum_(2).transpose(1, 2).contiguous().cumsum_(2)
+
+    # The box of radius r around frame cell (a, b) is S at the corners
+    # [m, p]: (a + r + 1, b + r + 1) + (a - r, b - r) (m = 0) less
+    # (a - r, b + r + 1) + (a + r + 1, b - r) (m = 1).  Flat, each corner
+    # is base + r * step, base = g + m + p * w[m], step = (2p - 1) * w[m],
+    # g the flat (a, b) in the plane of the other class than the frame's
+    # at (a, b) (the quirky map puts column 0's there for column nlon-1).
+    w = torch.arange(w1 + 1, w1 - 2, -2, device=dev)        # [w1+1, w1-1]
+    p = torch.arange(2, device=dev)
+    step = torch.outer(w, 2 * p - 1)[..., None, None]
+    g = (torch.arange(cap * w1, (cap + nlat) * w1, w1, device=dev)[:, None]
+         + torch.arange(cap, cap + nlon, device=dev))
+    g = torch.add(g, lpt[cap:cap + nlon, cap:cap + nlat].T, alpha=h1 * w1)
+    idx = g + (torch.outer(w, p) + p[:, None])[..., None, None]
+
+    # the largest radius whose box holds no cell of the other class (0 at
+    # least), in [lo, lo + n - 1]; idx holds lo's corners
+    n = cap + 1
+    while n > 1:
+        half = n // 2
+        probe = torch.add(idx, step, alpha=half)
+        sums = S.take(probe).sum(1)
+        idx = torch.where(sums[0] == sums[1], probe, idx)
+        n -= half
+    radius = (g - idx[0, 0]) // w[0]
+    need = torch.where(target, radius, 0).amax() + 1
+    both = S[:, -1, -1].amin() > 0
+    return torch.where(both, need, 1).clamp_max_(cap)
+
+
 def ring_quantities(t0, cdist):
     """The three window summands t0*land, land, t0*sea, stacked (3, h, w).
     The sea count is (2nn+1)^2 - n_land in float32: exact up to nn = 2047,

@@ -27,7 +27,7 @@ adds to a named counter (``h2d_bytes``: the bytes of host arrays the port
 takes onto its device; ``h2d_bytes_skipped``: the bytes of the u, v and
 pressure levels ``api.diag`` leaves on the host, since the trigger reads
 one; ``probe_frame_cells``: the cells of each frame the ring-radius
-probe's host transforms walk, under the span ``probe:transform``) under
+probe's passes walk, under the span ``probe:transform``) under
 the same switch.
 
 Also here: :func:`device_info`, the counterpart of the reference's

@@ -100,13 +100,18 @@ def _waits(tree):
 
 def test_diag_spans_nest(world):
     _diag(world)                                  # warm: builds the caches
-    tree = _tree(_profiled(lambda: _diag(world)))
+    prof = _profiled(lambda: _diag(world))
+    tree = _tree(prof)
     assert _names(tree) == ["api:diag"]
     call = tree[0][1]
     assert _names(call) == ["api:probe", "api:run", "api:outputs"]
     probe, run, outputs = (kids for _, kids in call)
-    assert probe == [("pipeline:distance", [("wait:pad_coast_index", [])]),
-                     ("wait:probe_readback", [])]
+    # the probe reads back one integer a pass
+    passes = [e.name() for e in prof.profiler.kineto_results.events()].count(
+        "probe:transform")
+    assert passes >= 1
+    assert probe == [("pipeline:distance", [("wait:pad_coast_index", [])])
+                     ] + [("wait:probe_readback", [])] * passes
     assert _names(run) == ["pipeline:inputs"] + ["pipeline:step"] * T
     for _, step in run[1:]:
         assert step == [

@@ -25,8 +25,8 @@ overlapped and basic structures on the kernel path):
 2. **Breakdown of one ``diag`` call.**  Each part timed alone, best of 3,
    in ms per call of 32 steps: ``diag`` itself (with and without
    ``full_output``), the host-to-device copy of the inputs from pageable
-   and from pinned memory, the ring-radius probe (its distance field on the
-   card, the host transform), the resident loop, and the copy back of
+   and from pinned memory, the ring-radius probe (its distance field, its
+   passes on the card), the resident loop, and the copy back of
    sb_con and of all four output fields.  With ``--driver``, this report
    alone, for the call the batch driver makes per file: the world's first
    4 steps (``chip_smoke``'s driver phase).
@@ -200,10 +200,10 @@ def breakdown(world):
     pipe = TriggerPipeline(grid, device=dev)
     lsm_d = torch.as_tensor(lsm, device=dev)
     ci0 = torch.as_tensor(ci[0], device=dev)
-    parts["probe distance + D2H"] = wall_ms(
-        lambda: pipe.distance_field(lsm_d, ci0).cpu().numpy())
-    cd0 = pipe.distance_field(lsm_d, ci0).cpu().numpy()
-    parts["probe host transform"] = wall_ms(
+    parts["probe distance"] = wall_ms(
+        lambda: pipe.distance_field(lsm_d, ci0))
+    cd0 = pipe.distance_field(lsm_d, ci0)
+    parts["probe passes on the card"] = wall_ms(
         lambda: ring_radius(cd0, Params(), pipe.k))
 
     d = [torch.as_tensor(a, device=dev)
