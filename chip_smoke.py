@@ -643,13 +643,22 @@ def km_world():
     return regional_world(KM_SPACING, 54.0, KM_STEPS)
 
 
-def diag_nn(grid):
-    """The ring radius NN that ``diag`` ran at on ``grid`` (its sticky
-    per-grid bound)."""
-    from seabreeze_param_tpu_torch import api
-    key = (grid.lon.tobytes(), grid.lat.tobytes())
-    return max(v for k, v in api._CACHE.items()
-               if k[:2] == key and k[-1] == "ring_nn")
+def diag_nn(grid, lsm, ci, params=None):
+    """The ring radius NN that ``diag`` runs at on ``grid`` with land mask
+    ``lsm`` and sea ice ``ci`` (T, nlat, nlon) or None:
+    ``ops.ring_search.ring_bound`` on its first step's distance field.
+    Launches the distance kernel once."""
+    import torch
+    from seabreeze_param_tpu_torch.core.params import Params
+    from seabreeze_param_tpu_torch.models.pipeline import TriggerPipeline
+    from seabreeze_param_tpu_torch.ops.ring_search import ring_bound
+    params = params or Params()
+    pipe = TriggerPipeline(grid, params, device="cuda")
+    ci0 = None if ci is None else torch.as_tensor(
+        np.asarray(ci[0], np.float32), device="cuda")
+    cd0 = pipe.distance_field(torch.as_tensor(
+        np.asarray(lsm, np.float32), device="cuda"), ci0)
+    return ring_bound(cd0, pipe.k, params)
 
 
 def regional_diag(world, what, least_nn):
@@ -677,7 +686,7 @@ def regional_diag(world, what, least_nn):
     want = {"ring_trigger_stacked": T, dist_kernel(): T + 1}  # + the probe
     if launches != want:
         raise AssertionError(f"{what} diag launches {launches}, want {want}")
-    nn = diag_nn(grid)
+    nn = diag_nn(grid, lsm, ci)
     if nn < least_nn:
         raise AssertionError(f"{what} diag ran at NN = {nn} < {least_nn}")
     plain, pms = run(use_kernels=False)
@@ -1465,7 +1474,8 @@ def phase_sharded(out):
                "basic": ShardedPipeline(single, mesh, overlap=False),
                "plain": ShardedPipeline(plain_pipe, mesh),
                "single": single}
-    if not runners["overlap"].overlap or runners["plain"].overlap is not True:
+    if not (runners["overlap"].overlapped()
+            and runners["plain"].overlapped() is True):
         raise AssertionError("sharded: the overlapped structure was not "
                              "chosen at global025 on 2x4")
 
@@ -1707,7 +1717,7 @@ def phase_multicard(out):
                "groups_basic": ShardedPipeline(single, mesh, overlap=False),
                "one_basic": ShardedPipeline(single, one, overlap=False),
                "single": single}
-    if not (runners["groups"].overlap and runners["one"].overlap):
+    if not (runners["groups"].overlapped() and runners["one"].overlapped()):
         raise AssertionError("multicard: the overlapped structure was not "
                              "chosen at global010 on 2x2")
 
@@ -2727,7 +2737,7 @@ def phase_past_2047(out):
     want = {"ring_trigger_stacked": T, dist_kernel(): T + 1}  # + the probe
     if launches != want:
         raise AssertionError(f"strip diag launches {launches}, want {want}")
-    nn = diag_nn(grid)
+    nn = diag_nn(grid, lsm, ci, Params(maxdist=STRIP_MAXDIST))
     if nn <= EXACT_NN:
         raise AssertionError(f"strip diag ran at NN = {nn} <= {EXACT_NN}")
     plain, pms = run(use_kernels=False)
@@ -2916,7 +2926,7 @@ def rank_runner(runner, d, rout, rstate, what):
     from seabreeze_param_tpu_torch.parallel import distributed as dist
     mesh, T = runner.sp.mesh, SHARD_STEPS
     nlat, nlon = runner.sp.nlat_real, d[3].shape[-1]
-    if not runner.sp.overlap:
+    if not runner.sp.overlapped():
         raise AssertionError(f"{what}: not the overlapped structure")
     lo, hi = runner.row_lo, min(runner.row_hi, nlat)
     local = [x if x.dim() == 1 else x[..., lo:hi, :].contiguous()

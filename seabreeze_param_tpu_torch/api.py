@@ -32,9 +32,12 @@ global fields, gathered over the process group.
 With 1-D pressure the trigger reads u and v at one level, the same for
 every cell and step: ``diag`` picks it on the host
 (:func:`ops.trigger.nearest_level`, the device's own rule) and reads and
-moves only that level, with ``pres`` at it; the counter
-``h2d_bytes_skipped`` counts the float32 bytes of the levels left behind.
-With 3-D pressure the level is picked per column, and every level moves.
+moves only that level, with ``pres`` at it.  With 3-D pressure the level
+is picked per column, and every level moves.
+
+Each call runs at the ring radius NN that :func:`ops.ring_search.
+ring_bound` gives on its first step's distance field: the static bound
+k + 2 + margin, or the probed radius plus the margin, whichever is larger.
 """
 from __future__ import annotations
 
@@ -48,7 +51,7 @@ from .core.grid import Grid
 from .core.params import Params
 from .core.state import TriggerState
 from .models.pipeline import TriggerPipeline, _f32
-from .ops.ring_search import required_ring_radius
+from .ops.ring_search import ring_bound
 from .ops.trigger import nearest_level
 from .utils.tracing import tracer
 
@@ -56,28 +59,20 @@ _PARAM_KEYS = ("target_plev", "thresh_wind", "thresh_winddir",
                "thresh_windch", "thresh_thc", "target_time", "timestep",
                "maxdist")
 
-#: Pipelines keyed by (grid, params, device, kernels, ring bound, and for a
-#: decomposed run the mesh shape and devices), and the
-#: sticky ring bound per (grid, params, device, kernels); least recently used
-#: entries go first.  A pipeline caches its device distance tables, so a
-#: batch run over many files on one grid builds them once.
+#: Pipelines keyed by (grid, params, device, kernels, and for a decomposed
+#: run the mesh shape and devices); least recently used entries go first.
+#: A pipeline caches its device distance tables, so a batch run over many
+#: files on one grid builds them once.
 _CACHE: OrderedDict = OrderedDict()
 _CACHE_MAX = 16
 CACHE_STATS = {"pipeline_hits": 0, "pipeline_misses": 0}
 
 
 def clear_exec_cache():
-    """Drop all cached pipelines and ring bounds."""
+    """Drop all cached pipelines."""
     _CACHE.clear()
     CACHE_STATS["pipeline_hits"] = 0
     CACHE_STATS["pipeline_misses"] = 0
-
-
-def _cache_put(key, value):
-    _CACHE[key] = value
-    _CACHE.move_to_end(key)
-    while len(_CACHE) > _CACHE_MAX:
-        _CACHE.popitem(last=False)
 
 
 def _cached_pipeline(key, build):
@@ -87,7 +82,10 @@ def _cached_pipeline(key, build):
         pipe = build()
     else:
         CACHE_STATS["pipeline_hits"] += 1
-    _cache_put(key, pipe)
+    _CACHE[key] = pipe
+    _CACHE.move_to_end(key)
+    while len(_CACHE) > _CACHE_MAX:
+        _CACHE.popitem(last=False)
     return pipe
 
 
@@ -100,49 +98,8 @@ def _fill(ci):
     return np.asarray(ci, np.float32)
 
 
-def ring_radius(cdist0, params: Params, k: int) -> int:
-    """:func:`required_ring_radius` on a frame widened only as far as
-    needed: padded by about 4k cells first, and doubled while the result
-    reaches the frame (a result below the frame width is exact).  Each
-    pass runs on ``cdist0``'s device (a host array: the CPU) under the span
-    ``probe:transform``, reads back its one integer under
-    ``wait:probe_readback``, and adds the cells of its frame to the counter
-    ``probe_frame_cells``."""
-    cdist0 = torch.as_tensor(cdist0)
-    nlat, nlon = cdist0.shape
-    full = max(nlat, nlon)
-    cap = min(full, max(8, 4 * k))
-    while True:
-        tracer.count("probe_frame_cells", (nlat + 2 * cap) * (nlon + 2 * cap))
-        with tracer.hook("probe:transform"):
-            req = required_ring_radius(
-                cdist0, params.maxdist, exact_lon=params.exact_lon_indexing,
-                cap=cap)
-            with tracer.hook("wait:probe_readback"):
-                req = int(req)
-        if req < cap or cap >= full:
-            return req
-        cap = min(full, 2 * cap)
-
-
-def needed_ring_nn(pipe: TriggerPipeline, cdist0) -> int:
-    """The ring radius NN ``diag`` needs on ``pipe``'s grid: its static
-    bound, or the radius probed on the first step's distance field
-    ``cdist0`` (a tensor, on the pipeline's device in ``diag``) plus the
-    margin, whichever is larger."""
-    params = pipe.params
-    return int(max(pipe.nn_max, ring_radius(cdist0, params, pipe.k)
-                   + params.ring_search_margin))
-
-
-def _count_skipped(nlev, u, v):
-    """Count the float32 bytes of the nlev - 1 levels of u, v and pres that
-    a call reading one level (``u``, ``v``) did not move."""
-    tracer.count("h2d_bytes_skipped", (nlev - 1) * (u.nbytes + v.nbytes + 4))
-
-
 def _run_multihost(pipe, mesh, devices, key, state, t, u, v, lsm, z, std,
-                   pres, ci, single, lev):
+                   pres, ci, single, lev, nn):
     """The multi-process run (the reference's decomposed MPI run,
     ``UM/vn10.7/sea_breeze_diag.F90:408-410``): a
     :class:`parallel.distributed.DistributedRunner` over this process's
@@ -151,7 +108,7 @@ def _run_multihost(pipe, mesh, devices, key, state, t, u, v, lsm, z, std,
     only (``t``, ``u``, ``v`` and ``ci`` may be lazy netCDF handles, read
     over those rows; ``u`` and ``v`` at the one level ``lev`` unless it is
     None), its outputs gathered back to the global grid on every
-    process."""
+    process; at ring radius ``nn``."""
     from .parallel import distributed as pdist
     from .parallel.mesh import ShardMesh, parse_shape
     from .parallel.sharded import ShardedPipeline
@@ -178,15 +135,12 @@ def _run_multihost(pipe, mesh, devices, key, state, t, u, v, lsm, z, std,
                        np.float32)
         return x[None] if lead_t and single else x
 
-    u_b, v_b = slab(u, True, lev), slab(v, True, lev)
-    if lev is not None:
-        _count_skipped(np.shape(u)[-3], u_b, v_b)
     final, outs = runner.run(
         TriggerState(state.tt, slab(state.thc), slab(state.windspeed),
                      slab(state.winddir)),
-        slab(t, True), u_b, v_b, slab(lsm), slab(z),
-        slab(std), slab(pres) if np.ndim(pres) == 3 else pres,
-        ci_t=None if ci is None else slab(ci, True))
+        slab(t, True), slab(u, True, lev), slab(v, True, lev), slab(lsm),
+        slab(z), slab(std), slab(pres) if np.ndim(pres) == 3 else pres,
+        ci_t=None if ci is None else slab(ci, True), nn=nn)
     span, nlat = runner.row_hi - runner.row_lo, runner.sp.nlat_real
     final = TriggerState(final.tt, *(
         pdist.gather_rows(getattr(final, f), span, nlat)
@@ -258,9 +212,9 @@ def diag(tt, lsm, z, std, lon, lat, pres, *args, **kwargs):
     lon_a = np.asarray(lon, np.float32)
     lat_a = np.asarray(lat, np.float32)
     grid = Grid(lon=lon_a, lat=lat_a)
-    base_key = (lon_a.tobytes(), lat_a.tobytes(), params, str(device),
-                use_kernels)
-    pipe = _cached_pipeline(base_key + ("base",), lambda: TriggerPipeline(
+    key = (lon_a.tobytes(), lat_a.tobytes(), params, str(device),
+           use_kernels)
+    pipe = _cached_pipeline(key, lambda: TriggerPipeline(
         grid=grid, params=params, device=device, use_kernels=use_kernels))
 
     single = len(tuple(v.shape)) <= 3
@@ -304,39 +258,26 @@ def diag(tt, lsm, z, std, lon, lat, pres, *args, **kwargs):
         levels = ((slice(lev, lev + 1),) if single
                   else (slice(None), slice(lev, lev + 1)))
 
-    # Ring-search bound from the first step's distance field, measured on
-    # the device, one integer read back a pass (exact for any grid; every
-    # process of a multi-process run measures the same global field).
-    # Sticky per grid: a bound >= the one needed is reused, since wider
-    # rings change nothing once both classes have latched.
+    # the ring radius from the first step's distance field, measured on
+    # the device (every process of a multi-process run measures the same
+    # global field)
     with tracer.hook("api:probe"):
         lsm_d = _f32(lsm, device)
         ci0 = None if ci is None else _f32(
             _fill(ci[...] if single else ci[0]), device)
-        needed = needed_ring_nn(pipe, pipe.distance_field(lsm_d, ci0))
-        nn_key = base_key + ("ring_nn",)
-        prev_nn = _CACHE.get(nn_key)
-        ring_nn = prev_nn if prev_nn is not None and prev_nn >= needed \
-            else int(needed)
-        _cache_put(nn_key, ring_nn)
-    pipe = _cached_pipeline(base_key + ("ring", ring_nn), lambda:
-                            TriggerPipeline(grid=grid, params=params,
-                                            ring_nn=ring_nn, device=device,
-                                            use_kernels=use_kernels))
+        nn = ring_bound(pipe.distance_field(lsm_d, ci0), pipe.k, params)
 
     with tracer.hook("api:run"):
         if multihost:
-            final, outs = _run_multihost(pipe, mesh, mesh_devices,
-                                         base_key + (ring_nn,), state, t, u,
-                                         v, lsm, z, std, pres, ci, single,
-                                         lev)
+            final, outs = _run_multihost(pipe, mesh, mesh_devices, key,
+                                         state, t, u, v, lsm, z, std, pres,
+                                         ci, single, lev, nn)
         else:
             # only these levels are read from a lazy handle, converted
             # from big-endian, and moved
             u = np.asarray(u[levels], np.float32)
             v = np.asarray(v[levels], np.float32)
             if lev is not None:
-                _count_skipped(nlev, u, v)
                 # a step's level is contiguous where the whole slice is
                 # not: move the steps one by one, so the host gathers none
                 u, v = (torch.stack([_f32(x, device) for x in a])
@@ -351,10 +292,10 @@ def diag(tt, lsm, z, std, lon, lat, pres, *args, **kwargs):
                 from .parallel.sharded import ShardedPipeline
                 run_pipe = pipe
                 pipe = _cached_pipeline(
-                    base_key + ("sharded", ring_nn, mesh.shape, mesh.devices),
+                    key + ("sharded", mesh.shape, mesh.devices),
                     lambda: ShardedPipeline(run_pipe, mesh))
             final, outs = pipe.run(state, t, u, v, lsm_d, z, std, pres,
-                                   ci_t=ci)
+                                   ci_t=ci, nn=nn)
     with tracer.hook("api:outputs"):
         thc_o, ws_o, wd_o = (_to_host(a, "state_readback") for a in (
             final.thc, final.windspeed, final.winddir))

@@ -76,13 +76,12 @@ class CoupledTrigger:
         return self.tracer if self.tracer is not None else _default_tracer
 
     def pipeline(self) -> TriggerPipeline:
-        """The bound pipeline, built once: it holds the ring bound, the
-        kernel choice and the device distance tables (built at the first
+        """The bound pipeline, built once: it holds the kernel choice and
+        the device distance tables (built at the first
         :meth:`prepare_mask`)."""
         pipe = getattr(self, "_pipe", None)
         if pipe is None:
-            pipe = TriggerPipeline(self.grid, self.params,
-                                   ring_nn=self.nn_max, device=self.device,
+            pipe = TriggerPipeline(self.grid, self.params, device=self.device,
                                    use_kernels=self.use_kernels)
             object.__setattr__(self, "_pipe", pipe)
         return pipe
@@ -124,9 +123,9 @@ class CoupledTrigger:
                     state.windspeed, state.winddir))
             state = TriggerState(tt=int(state.tt), thc=thc, windspeed=ws,
                                  winddir=wd)
+            nn = pipe.nn_max if self.nn_max is None else self.nn_max
             return trigger_step(state, theta, u, v, mask, z, sigma, p,
-                                self.params, pipe.nn_max,
-                                use_kernels=pipe.kernels)
+                                self.params, nn, use_kernels=pipe.kernels)
 
 
 def sea_breeze_diag(timestep, timestep_number, p, u, v, theta, z, sigma,

@@ -25,6 +25,7 @@ from ..core.state import TriggerState
 from ..ops.coastline import get_edges
 from ..ops.distance import coast_distance, device_tables, effective_radius
 from ..ops.orography import sigmoid_weight
+from ..ops.ring_search import static_ring_bound
 from ..ops.trigger import trigger_step, trigger_step_stacked
 from ..utils.tracing import tracer as _default_tracer
 
@@ -74,7 +75,6 @@ class TriggerPipeline:
 
     grid: Grid
     params: Params = field(default_factory=Params)
-    ring_nn: int | None = None
     device: str | torch.device = "cuda"
     use_kernels: bool | None = None
     distance_impl: str = "auto"
@@ -86,11 +86,9 @@ class TriggerPipeline:
 
     @property
     def nn_max(self) -> int:
-        """Static ring-search bound: k+2 plus the margin on physically
-        periodic grids, or the measured ``ring_nn``."""
-        if self.ring_nn is not None:
-            return max(1, int(self.ring_nn))
-        return max(3, self.k + 2 + self.params.ring_search_margin)
+        """The static ring-search bound (:func:`ops.ring_search.
+        static_ring_bound`), the NN of a run or step given none."""
+        return static_ring_bound(self.k, self.params)
 
     @property
     def kernels(self) -> bool:
@@ -124,23 +122,26 @@ class TriggerPipeline:
 
     @_default_tracer.span("pipeline:step")
     def step(self, state: TriggerState, theta, u, v, lsm, z, std, pres,
-             ci=None, smod=None):
+             ci=None, smod=None, *, nn=None):
         """One full timestep (distance rebuild + trigger), kernel B4 on the
-        kernel path.  Fields as arrays or tensors (moved to the pipeline's
-        device as float32); ``state`` holds tensors on that device and is
-        not modified.  Returns ``(new_state, outputs)``, outputs the four
-        (nlat, nlon) fields of :func:`ops.trigger.trigger_core`."""
+        kernel path, at ring radius ``nn`` (None: :attr:`nn_max`).  Fields
+        as arrays or tensors (moved to the pipeline's device as float32);
+        ``state`` holds tensors on that device and is not modified.
+        Returns ``(new_state, outputs)``, outputs the four (nlat, nlon)
+        fields of :func:`ops.trigger.trigger_core`."""
         dev = torch.device(self.device)
         theta, u, v, lsm, z, std, pres = (
             _f32(a, dev) for a in (theta, u, v, lsm, z, std, pres))
         cdist = self.distance_field(lsm, None if ci is None else _f32(ci, dev))
         return trigger_step(state, theta, u, v, cdist, z, std, pres,
-                            self.params, self.nn_max, smod=smod,
-                            use_kernels=self.kernels)
+                            self.params, self.nn_max if nn is None else nn,
+                            smod=smod, use_kernels=self.kernels)
 
     def run(self, state: TriggerState, theta_t, u_t, v_t, lsm, z, std, pres,
-            ci_t=None):
-        """Loop over the leading time axis.
+            ci_t=None, *, nn=None):
+        """Loop over the leading time axis at ring radius ``nn`` (None:
+        :attr:`nn_max`; ``ops.ring_search.ring_bound`` gives the one a run
+        needs).
 
         theta_t : (T, nlat, nlon); u_t, v_t : (T, nlev, nlat, nlon);
         ci_t : (T, nlat, nlon) or None (then the distance field is computed
@@ -160,7 +161,7 @@ class TriggerPipeline:
                               windspeed=_f32(state.windspeed, dev).clone(),
                               winddir=_f32(state.winddir, dev).clone())
         T, nlat, nlon = theta_t.shape
-        params, NN = self.params, self.nn_max
+        params, NN = self.params, self.nn_max if nn is None else nn
 
         smod = sigmoid_weight(std)
         cdist = None if ci_t is not None else self.distance_field(lsm)

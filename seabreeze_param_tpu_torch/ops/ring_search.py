@@ -18,73 +18,19 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .indexing import (lat_index_clamped, lon_index_periodic,
-                       lon_index_quirky, pad2d, pad_indices)
-
-
-def required_ring_radius_host(cdist, maxdist, *, exact_lon: bool = True,
-                              cap: int | None = None) -> int:
-    """Host-side exact bound for the expanding-ring radius (a NumPy copy of
-    the JAX package's).
-
-    For every cell with |cdist| <= maxdist, the smallest nn whose window
-    holds both cdist classes; returns the maximum over cells, at most
-    ``cap`` (default max(nlat, nlon)).  The ring window of radius nn is the
-    Chebyshev ball, so the required nn is the larger Chebyshev distance to
-    the nearest cell of either class, on a frame padded by ``cap`` through
-    the boundary maps.  A result below ``cap`` is exact.
-    """
-    try:
-        from scipy.ndimage import distance_transform_cdt
-    except ImportError:
-        distance_transform_cdt = None
-
-    cdist = np.asarray(cdist)
-    nlat, nlon = cdist.shape
-    if cap is None:
-        cap = max(nlat, nlon)
-    land = cdist >= 0.0
-    target = np.abs(cdist) <= np.float32(maxdist)
-    if not target.any():
-        return 1
-    rows = pad_indices(nlat, cap, lat_index_clamped)
-    cols = pad_indices(nlon, cap,
-                       lon_index_quirky if exact_lon else lon_index_periodic)
-    Lp = land[rows][:, cols]
-
-    def _cheb_dist(zero_set):
-        """Chessboard distance to the nearest True cell of ``zero_set``."""
-        if distance_transform_cdt is not None:
-            return distance_transform_cdt(~zero_set, metric="chessboard")
-        reached = zero_set.copy()
-        dist = np.where(reached, 0, np.iinfo(np.int32).max)
-        for r in range(1, int(cap) + 1):
-            if reached.all():
-                break
-            grown = reached.copy()
-            grown[1:, :] |= reached[:-1, :]
-            grown[:-1, :] |= reached[1:, :]
-            grown[:, 1:] |= reached[:, :-1]
-            grown[:, :-1] |= reached[:, 1:]
-            grown[1:, 1:] |= reached[:-1, :-1]
-            grown[1:, :-1] |= reached[:-1, 1:]
-            grown[:-1, 1:] |= reached[1:, :-1]
-            grown[:-1, :-1] |= reached[1:, 1:]
-            dist[grown & ~reached] = r
-            reached = grown
-        return dist
-
-    r_land = _cheb_dist(Lp)
-    r_sea = _cheb_dist(~Lp)
-    ctr = (slice(cap, cap + nlat), slice(cap, cap + nlon))
-    need = np.maximum(np.maximum(r_land[ctr], r_sea[ctr]), 1)
-    return int(min(cap, need[target].max()))
+from ..utils.tracing import tracer
+from .indexing import pad2d
 
 
 def required_ring_radius(cdist, maxdist, *, exact_lon: bool = True,
                          cap: int | None = None):
-    """:func:`required_ring_radius_host` on ``cdist``'s device: the same
-    integer, as a 0-d int64 tensor there, with no host wait.
+    """The exact bound for the expanding-ring radius, on ``cdist``'s
+    device: for every cell with |cdist| <= maxdist, the smallest nn whose
+    window holds both cdist classes; the maximum over cells, at most
+    ``cap`` (default max(nlat, nlon)), as a 0-d int64 tensor there, with no
+    host wait.  A result below ``cap`` is exact.  Its reference is the JAX
+    package's ``required_ring_radius_host`` (two scipy chamfer transforms),
+    which gives the same integer.
 
     On the frame padded by ``cap`` (rows clamped, columns through the
     quirky or the periodic map), an integral image counts each class in a
@@ -93,7 +39,7 @@ def required_ring_radius(cdist, maxdist, *, exact_lon: bool = True,
     (2r + 1)^2 box around it holds one.  Every cell searches r in [0, cap]
     at once, halving a fixed range (``ceil(log2(cap + 1))`` rounds, so no
     branch on the data); a box of radius <= cap lies inside the frame.  As
-    the host function: 1 without a target, 1 where the frame holds one
+    the reference: 1 without a target, 1 where the frame holds one
     class alone (scipy's transform then gives -1), else the largest need,
     at most ``cap``.
     """
@@ -152,6 +98,44 @@ def required_ring_radius(cdist, maxdist, *, exact_lon: bool = True,
     need = torch.where(target, radius, 0).amax() + 1
     both = S[:, -1, -1].amin() > 0
     return torch.where(both, need, 1).clamp_max_(cap)
+
+
+def static_ring_bound(k: int, params) -> int:
+    """The ring radius NN that holds on physically periodic grids without
+    a probe: k + 2 plus ``params.ring_search_margin``, at least 3."""
+    return max(3, k + 2 + params.ring_search_margin)
+
+
+def ring_bound(cdist0, k: int, params) -> int:
+    """The ring radius NN for a run whose first distance field is
+    ``cdist0``: :func:`static_ring_bound`, or the radius
+    :func:`required_ring_radius` probes on ``cdist0`` plus the margin,
+    whichever is larger.  Any NN at or above the need gives the same
+    answers: every target latches at its own radius.
+
+    The probe widens its frame only as far as needed: padded by about 4k
+    cells first, and doubled while the result reaches the frame (a result
+    below the frame width is exact).  Each pass runs on ``cdist0``'s device
+    (a host array: the CPU) under the span ``probe:transform``, reads back
+    its one integer under ``wait:probe_readback``, and adds the cells of
+    its frame to the counter ``probe_frame_cells``."""
+    cdist0 = torch.as_tensor(cdist0)
+    nlat, nlon = cdist0.shape
+    full = max(nlat, nlon)
+    cap = min(full, max(8, 4 * k))
+    while True:
+        tracer.count("probe_frame_cells", (nlat + 2 * cap) * (nlon + 2 * cap))
+        with tracer.hook("probe:transform"):
+            req = required_ring_radius(
+                cdist0, params.maxdist, exact_lon=params.exact_lon_indexing,
+                cap=cap)
+            with tracer.hook("wait:probe_readback"):
+                req = int(req)
+        if req < cap or cap >= full:
+            break
+        cap = min(full, 2 * cap)
+    return max(static_ring_bound(k, params),
+               req + params.ring_search_margin)
 
 
 def ring_quantities(t0, cdist):

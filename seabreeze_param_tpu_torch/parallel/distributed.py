@@ -279,18 +279,18 @@ class DistributedRunner:
         return arr
 
     def run(self, state: TriggerState, theta_t, u_t, v_t, lsm, z, std, pres,
-            ci_t=None):
-        """:meth:`ShardedPipeline.run` with every field argument this
-        process's row block (``pres`` 1-D, or its block of a 3-D field);
-        returns ``(final_state, outputs)`` of the block's real rows,
-        tensors on the mesh's device."""
+            ci_t=None, *, nn=None):
+        """:meth:`ShardedPipeline.run` at ring radius ``nn`` with every
+        field argument this process's row block (``pres`` 1-D, or its
+        block of a 3-D field); returns ``(final_state, outputs)`` of the
+        block's real rows, tensors on the mesh's device."""
         pad = self.pad_rows_local
         pres_b = pad(pres) if np.ndim(pres) == 3 else pres
         final, outs = self.sp.run_block(
             TriggerState(state.tt, pad(state.thc), pad(state.windspeed),
                          pad(state.winddir)),
             pad(theta_t), pad(u_t), pad(v_t), pad(lsm), pad(z), pad(std),
-            pres_b, ci_t=None if ci_t is None else pad(ci_t))
+            pres_b, ci_t=None if ci_t is None else pad(ci_t), nn=nn)
         real = min(self.row_hi, self.sp.nlat_real) - self.row_lo
         return (TriggerState(final.tt, final.thc[:real],
                              final.windspeed[:real], final.winddir[:real]),

@@ -101,10 +101,11 @@ class ShardedPipeline:
     Requires nlon % px == 0; nlat is replication-padded to a multiple of
     the global mesh rows; on a multi-process mesh this process owns the
     padded rows ``[row_lo, row_hi)``.  ``overlap`` — ``'auto'``
-    (default): the overlapped structure whenever the mask apron fits the
-    shard, else basic; True/False force it.  ``halo_backend`` — ``'auto'`` (default): ``'kernel'`` (B6; its
-    plain version for CPU tensors) unless the pipeline has
-    ``use_kernels=False``, then ``'plain'``.  The JAX package's
+    (default): the overlapped structure whenever the mask apron of the
+    run's NN fits the shard, else basic; True/False force it
+    (:meth:`overlapped`).  ``halo_backend`` — ``'auto'`` (default):
+    ``'kernel'`` (B6; its plain version for CPU tensors) unless the
+    pipeline has ``use_kernels=False``, then ``'plain'``.  The JAX package's
     ``'ppermute'`` and ``'dma'`` are ``'plain'`` and ``'kernel'`` here.
     The shards live on their groups' devices, of the pipeline's device
     type; the outputs on ``mesh.device``.
@@ -129,7 +130,7 @@ class ShardedPipeline:
         self.nlat_pad = -(-grid.nlat // py_all) * py_all
         lat_idx = np.minimum(np.arange(self.nlat_pad), grid.nlat - 1)
         self.grid_padded = Grid(lon=grid.lon, lat=grid.lat[lat_idx])
-        self.k, self.nn_max = pipe.k, pipe.nn_max
+        self.k = pipe.k
         self.kernels = pipe.kernels
         self.halo_backend = resolve_backend(self.halo_backend,
                                             pipe.use_kernels)
@@ -143,31 +144,39 @@ class ShardedPipeline:
                 raise ValueError(
                     "distance_lon_form='nearest' needs a uniform global "
                     "lon axis with k*dlam <= 180 deg")
-        # Halo-width guard: every exchanged width must fit inside one
-        # shard, in lon strictly when the quirky seam patches are on (at
-        # hx == w the copy of global column nlon-1 in a neighbour's
-        # opposite halo has no patch position).
         self.h, self.w = self.nlat_pad // py_all, grid.nlon // px
         self.row_lo = mesh.row0 * self.h
         self.row_hi = self.row_lo + py * self.h
-        a_m = self.nn_max + self.k + 1          # overlapped mask apron
-        basic = max(1, self.k, self.nn_max)     # basic-path widths
-        exact = pipe.params.exact_lon_indexing
-        max_w = self.w - 1 if exact else self.w
-        if self.overlap == "auto":
-            self.overlap = a_m <= self.h and a_m <= max_w
-        widest = a_m if self.overlap else basic
-        if widest > self.h or widest > max_w:
-            raise ValueError(
-                f"halo width {widest} (overlap={self.overlap}: mask apron "
-                f"nn+k+1={a_m}, basic max(1,k={self.k},nn={self.nn_max})="
-                f"{basic}) exceeds the local shard extent {self.h}x{self.w}"
-                f"{' minus the quirky-seam margin' if exact else ''} on a "
-                f"{py}x{px} mesh; use fewer shards or a finer grid")
         self.tables = {dev: device_tables(self.grid_padded, self.k, dev)
                        for dev in dict.fromkeys(mesh.devices)}
         # the kernel path gives each group a stream of its own
         self.streams = self.halo_backend == "kernel"
+
+    def overlapped(self, nn=None) -> bool:
+        """Whether a run at ring radius ``nn`` (None: the pipeline's
+        ``nn_max``) takes the overlapped structure.  Halo-width guard:
+        raises ValueError where an exchanged width of that structure does
+        not fit inside one shard, in lon strictly when the quirky seam
+        patches are on (at hx == w the copy of global column nlon-1 in a
+        neighbour's opposite halo has no patch position)."""
+        nn = self.pipeline.nn_max if nn is None else nn
+        a_m = nn + self.k + 1                   # overlapped mask apron
+        basic = max(1, self.k, nn)              # basic-path widths
+        exact = self.pipeline.params.exact_lon_indexing
+        max_w = self.w - 1 if exact else self.w
+        overlap = self.overlap
+        if overlap == "auto":
+            overlap = a_m <= self.h and a_m <= max_w
+        widest = a_m if overlap else basic
+        if widest > self.h or widest > max_w:
+            raise ValueError(
+                f"halo width {widest} (overlap={overlap}: mask apron "
+                f"nn+k+1={a_m}, basic max(1,k={self.k},nn={nn})={basic}) "
+                f"exceeds the local shard extent {self.h}x{self.w}"
+                f"{' minus the quirky-seam margin' if exact else ''} on a "
+                f"{self.mesh.shape[0]}x{self.mesh.shape[1]} mesh; use fewer "
+                f"shards or a finer grid")
+        return overlap
 
     # ------------------------------------------------------------------
     def _groups(self):
@@ -215,13 +224,13 @@ class ShardedPipeline:
             for key in OUT_KEYS})
 
     # ------------------------------------------------------------------
-    def _core_overlap(self, states, xs, lsm_s, z_s, smods, pres_s, T):
+    def _core_overlap(self, states, xs, lsm_s, z_s, smods, pres_s, T, nn):
         """Overlapped structure (module docstring).  ``xs`` = per-shard
         (theta, u, v, ci or None) time stacks.  Returns the shards' final
         states and (T, h, w) output stacks."""
         params, mesh = self.pipeline.params, self.mesh
         exact = params.exact_lon_indexing
-        h, w, nn, k = self.h, self.w, self.nn_max, self.k
+        h, w, k = self.h, self.w, self.k
         a_m = nn + k + 1
         theta_s, u_s, v_s, ci_s = xs
 
@@ -316,12 +325,12 @@ class ShardedPipeline:
         return states, outs
 
     # ------------------------------------------------------------------
-    def _core_basic(self, states, xs, lsm_s, z_s, smods, pres_s, T):
+    def _core_basic(self, states, xs, lsm_s, z_s, smods, pres_s, T, nn):
         """Basic structure: three exchanges per step (the JAX package's
         ``trigger_step`` with a ``ring_pad_fn``)."""
         params, mesh = self.pipeline.params, self.mesh
         exact = params.exact_lon_indexing
-        h, w, k, nn = self.h, self.w, self.k, self.nn_max
+        h, w, k = self.h, self.w, self.k
         theta_s, u_s, v_s, ci_s = xs
 
         def table(s):
@@ -370,13 +379,14 @@ class ShardedPipeline:
 
     # ------------------------------------------------------------------
     def run(self, state: TriggerState, theta_t, u_t, v_t, lsm, z, std, pres,
-            ci_t=None):
+            ci_t=None, *, nn=None):
         """Entry point with the arguments of ``TriggerPipeline.run``
         (arrays or tensors, moved to the mesh's device as float32): pads
         lat, takes this process's rows, runs them (:meth:`run_block`),
         gathers every process's rows and slices back to the real rows.
         Returns ``(final_state, outputs)``, outputs the four (T, nlat,
         nlon) tensors on ``mesh.device``; ``state`` is not modified."""
+        self.overlapped(nn)                 # refuse before moving a field
         dev = self.mesh.device
         if self.mesh.world == 1:
             def block(a):
@@ -393,7 +403,8 @@ class ShardedPipeline:
             TriggerState(state.tt, *(block(getattr(state, f)) for f in
                                      ("thc", "windspeed", "winddir"))),
             block(theta_t), block(u_t), block(v_t), block(lsm), block(z),
-            block(std), pres_b, ci_t=None if ci_t is None else block(ci_t))
+            block(std), pres_b, ci_t=None if ci_t is None else block(ci_t),
+            nn=nn)
         if self.mesh.world > 1:
             from .distributed import gather_rows
             span = self.row_hi - self.row_lo
@@ -408,12 +419,15 @@ class ShardedPipeline:
                 {key: o[:, real].contiguous() for key, o in outs.items()})
 
     def run_block(self, state: TriggerState, theta_t, u_t, v_t, lsm, z, std,
-                  pres, ci_t=None):
-        """Run this process's block: every field argument is the rows
+                  pres, ci_t=None, *, nn=None):
+        """Run this process's block at ring radius ``nn`` (None: the
+        pipeline's ``nn_max``): every field argument is the rows
         ``[row_lo, row_hi)`` of the lat-padded global field (``pres`` 1-D,
         or its block of a 3-D field).  Returns ``(final_state, outputs)``
         of those rows, padding rows included, as tensors on the mesh's
         device."""
+        nn = self.pipeline.nn_max if nn is None else nn
+        core = self._core_overlap if self.overlapped(nn) else self._core_basic
         mesh, dev = self.mesh, self.mesh.device
 
         def shards(a):
@@ -439,10 +453,9 @@ class ShardedPipeline:
             smods = sigmoid_weight_shards(std_s, valid, all_gather_cat)
         else:
             smods = sigmoid_weight_shards(std_s, valid)
-        core = self._core_overlap if self.overlap else self._core_basic
         if self.streams:
             fork(mesh)
-        states, outs = core(states, xs, lsm_s, z_s, smods, pres_s, T)
+        states, outs = core(states, xs, lsm_s, z_s, smods, pres_s, T, nn)
         if self.streams:
             join(mesh)
         final = TriggerState(states[0].tt, *(

@@ -381,7 +381,7 @@ def _rank_runner(out_dir):
             slab(theta), slab(u), slab(v), slab(lsm), slab(z), slab(std), p,
             ci_t=slab(ci))
         one = ShardedPipeline(pipe, make_mesh(shape, "cpu"), overlap=overlap)
-        assert one.overlap == sp.overlap
+        assert one.overlapped() == sp.overlapped()
         rstate, ref = one.run(zeros, theta, u, v, lsm, z, std, p, ci_t=ci)
         for key in ref:
             assert torch.equal(outs[key], ref[key][:, lo:hi]), key

@@ -287,7 +287,7 @@ def test_sharded_nearest_matches_jax(global_case):
                            Params(maxdist=600.0), device="cpu",
                            distance_lon_form="nearest")
     sp = ShardedPipeline(pipe, make_mesh((2, 2), "cpu"))
-    assert sp.half_dlam == jsp.half_dlam and sp.overlap == jsp.overlap
+    assert sp.half_dlam == jsp.half_dlam and sp.overlapped() == jsp.overlap
     state, out = sp.run(TriggerState.zeros(c["lsm"].shape, "cpu"), *xs,
                         ci_t=ci)
     single = pipe.run(TriggerState.zeros(c["lsm"].shape, "cpu"), *xs,

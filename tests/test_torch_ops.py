@@ -18,7 +18,6 @@ from seabreeze_param_tpu.ops import indexing as jidx
 from seabreeze_param_tpu.ops import orography as joro
 from seabreeze_param_tpu.ops import ring_search as jring
 from seabreeze_param_tpu.ops import trigger as jtrig
-from seabreeze_param_tpu_torch.api import ring_radius
 from seabreeze_param_tpu_torch.core import grid as tgrid
 from seabreeze_param_tpu_torch.core import params as tparams
 from seabreeze_param_tpu_torch.core.state import TriggerState, state_from_numpy
@@ -214,17 +213,23 @@ def test_cadence_matches_jax_state_rule():
 
 
 @pytest.mark.parametrize("case", CASES)
-def test_ring_radius_matches_jax(case, request):
-    """The NumPy copy equals the JAX package's helper, and the frame-
-    widening probe of the port's diag equals the full-frame result."""
+def test_ring_radius_matches_jax(case, request, monkeypatch):
+    """The port's ring bound is the JAX package's rule: the static bound,
+    or the host helper's radius plus the margin, whichever is larger; and
+    the frame-widening probe of the port's diag equals the helper's
+    full-frame result."""
     c = request.getfixturevalue(case)
     grid = Grid(lon=c["lon"], lat=c["lat"])
     coast = jco.get_edges(c["lsm"], c["ci_t"][-1])
     cd = _np(jdist.coast_distance(coast, c["lsm"], grid, 180.0))
     ref = jring.required_ring_radius_host(cd, 180.0)
-    assert tring.required_ring_radius_host(cd, 180.0) == ref
-    assert ring_radius(cd, tparams.Params(),
-                       jdist.effective_radius(grid, 180.0)) == ref
+    params = tparams.Params()
+    k = jdist.effective_radius(grid, 180.0)
+    margin = params.ring_search_margin
+    assert tring.ring_bound(cd, k, params) == max(
+        tring.static_ring_bound(k, params), ref + margin)
+    monkeypatch.setattr(tring, "static_ring_bound", lambda k, params: 0)
+    assert tring.ring_bound(cd, k, params) == ref + margin
 
 
 def test_state_round_trip_is_bit_equal():

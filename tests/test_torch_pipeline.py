@@ -154,7 +154,8 @@ def test_diag_api_probes(small_case):
     hot = diag(*base, device="cpu", thresh_thc=50.0)[1]
     assert ((hot == 0) | (hot == MISSING)).all()
     api.clear_exec_cache()
-    for m in (170.0, 175.0, 180.0, 185.0, 190.0, 195.0, 200.0, 205.0, 210.0):
-        diag(*base, device="cpu", maxdist=m)
-    assert len(api._CACHE) <= api._CACHE_MAX
-    assert api.CACHE_STATS["pipeline_misses"] >= 9
+    # one pipeline a call, two more than the cache holds
+    for m in 170.0 + 5.0 * np.arange(api._CACHE_MAX + 2):
+        diag(*base, device="cpu", maxdist=float(m))
+    assert len(api._CACHE) == api._CACHE_MAX
+    assert api.CACHE_STATS["pipeline_misses"] == api._CACHE_MAX + 2

@@ -1,23 +1,25 @@
 """The ring-radius probe on the device (``ops.ring_search.
-required_ring_radius``): the integer of the host's exact function
-``required_ring_radius_host`` (two scipy chamfer transforms) on random
-coasts at several land shares, on degenerate masks, at caps around the
-answer and past the domain, on frames wider than the short axis and
-across the quirky longitude seam; ``api.ring_radius`` on the worlds of
-``tests/test_torch_large_nn.py`` and on the 64 x 512 cut of the London
-cell (k = 462); and ``api.diag``'s probe, which reads back one integer a
-pass and no field."""
+required_ring_radius``): the integer of the JAX package's exact host
+function ``required_ring_radius_host`` (two scipy chamfer transforms) on
+random coasts at several land shares, on degenerate masks, at caps around
+the answer and past the domain, on frames wider than the short axis and
+across the quirky longitude seam; ``ops.ring_search.ring_bound`` on the
+worlds of ``tests/test_torch_large_nn.py`` and on the 64 x 512 cut of the
+London cell (k = 462); and ``api.diag``'s probe, which reads back one
+integer a pass and no field, and runs each call at its own bound."""
 import numpy as np
 import pytest
 import torch
 
+import seabreeze_param_tpu.ops.ring_search as jring
+from seabreeze_param_tpu.ops.ring_search import required_ring_radius_host
 from seabreeze_param_tpu_torch import api
 from seabreeze_param_tpu_torch.core.grid import Grid
 from seabreeze_param_tpu_torch.core.params import Params
 from seabreeze_param_tpu_torch.models.pipeline import TriggerPipeline
 from seabreeze_param_tpu_torch.ops import ring_search
 from seabreeze_param_tpu_torch.ops.ring_search import (
-    required_ring_radius, required_ring_radius_host)
+    required_ring_radius, ring_bound, static_ring_bound)
 from seabreeze_param_tpu_torch.utils import tracing
 
 MAXDIST = 180.0
@@ -134,17 +136,36 @@ def _inside(events, outer, name):
             for s0, e0, n0 in events if n0 == outer]
 
 
+def _bound(cdist, k, params):
+    """What :func:`ring_bound` must give: the static bound, or the host
+    function's radius plus the margin, whichever is larger."""
+    return max(static_ring_bound(k, params),
+               required_ring_radius_host(
+                   np.asarray(cdist), params.maxdist,
+                   exact_lon=params.exact_lon_indexing)
+               + params.ring_search_margin)
+
+
+def _probed(monkeypatch, cdist, k, params):
+    """:func:`ring_bound` with the static bound out of the way: the radius
+    its probe loop finds, plus the margin."""
+    with monkeypatch.context() as m:
+        m.setattr(ring_search, "static_ring_bound", lambda k, params: 0)
+        return ring_bound(cdist, k, params)
+
+
 def test_ring_radius_reads_back_one_integer_a_pass():
     cdist = _far_sea()
+    params = Params()
     out = []
-    events = _events(lambda: out.append(
-        api.ring_radius(cdist, Params(), k=1)))
-    assert out[0] == required_ring_radius_host(cdist, MAXDIST)
+    events = _events(lambda: out.append(ring_bound(cdist, 1, params)))
+    assert out[0] == _bound(cdist, 1, params)
+    assert out[0] > static_ring_bound(1, params)    # the probe decides
     assert _inside(events, "probe:transform", "wait:probe_readback") == [
         1, 1, 1, 1]
     assert [n for _, _, n in events].count("wait:probe_readback") == 4
     # a tensor and a host array give the same
-    assert api.ring_radius(torch.as_tensor(cdist), Params(), k=1) == out[0]
+    assert ring_bound(torch.as_tensor(cdist), 1, params) == out[0]
 
 
 def _small_world():
@@ -159,6 +180,17 @@ def _small_world():
     return lon, lat, lsm
 
 
+def _spy_nn(monkeypatch):
+    """The ``nn`` of every ``TriggerPipeline.run`` call, in order."""
+    seen, real = [], TriggerPipeline.run
+
+    def run(self, *args, nn=None, **kwargs):
+        seen.append(nn)
+        return real(self, *args, nn=nn, **kwargs)
+    monkeypatch.setattr(TriggerPipeline, "run", run)
+    return seen
+
+
 def test_diag_probe_reads_back_no_field(monkeypatch):
     """``api.diag`` calls neither the host function nor scipy's transform,
     picks the NN the host function gives, reads back one integer a pass,
@@ -168,26 +200,58 @@ def test_diag_probe_reads_back_no_field(monkeypatch):
     pipe = TriggerPipeline(grid=Grid(lon=lon, lat=lat), params=params,
                            device="cpu")
     cdist0 = pipe.distance_field(torch.as_tensor(lsm), None).numpy()
-    want = max(pipe.nn_max, required_ring_radius_host(cdist0, MAXDIST)
-               + params.ring_search_margin)
+    want = _bound(cdist0, pipe.k, params)
     assert want > pipe.nn_max               # the probe decides the NN
 
     def refuse(*args, **kwargs):
         raise AssertionError("the host transform ran")
-    monkeypatch.setattr(ring_search, "required_ring_radius_host", refuse)
+    monkeypatch.setattr(jring, "required_ring_radius_host", refuse)
     scipy_ndimage = pytest.importorskip("scipy.ndimage")
     monkeypatch.setattr(scipy_ndimage, "distance_transform_cdt", refuse)
 
+    seen = _spy_nn(monkeypatch)
     zeros = np.zeros((2, 1) + lsm.shape, np.float32)
     events = _events(lambda: api.diag(
         1, lsm, lsm, lsm, lon, lat, np.array([70000.0], np.float32), zeros,
         zeros, zeros[:, 0] + 288.0, None, device="cpu"))
-    nn = next(v for key, v in api._CACHE.items() if key[-1] == "ring_nn")
-    assert nn == want
+    assert seen == [want]
     assert _inside(events, "probe:transform", "wait:probe_readback") == [
         1, 1]
     assert _inside(events, "api:probe", "wait:probe_readback") == [2]
     assert _inside(events, "api:probe", "wait:pad_take_index") == [0]
+
+
+def test_diag_runs_each_call_at_its_own_bound(monkeypatch):
+    """Two fields on one grid whose bounds both pass the static bound: the
+    far sea needs 18, the same coast with a sea column inside the land 11.
+    The two calls build one pipeline; the second runs at its own bound,
+    not the first's; each call gives what it gives on a fresh cache."""
+    lon, lat, lsm = _small_world()
+    inland = lsm.copy()
+    inland[:, 30] = 0.0
+    zeros = np.zeros((2, 1) + lsm.shape, np.float32)
+
+    def call(land):
+        return api.diag(1, land, land, land, lon, lat,
+                        np.array([70000.0], np.float32), zeros, zeros,
+                        zeros[:, 0] + 288.0, None, device="cpu",
+                        full_output=True)
+
+    seen = _spy_nn(monkeypatch)
+    misses = api.CACHE_STATS["pipeline_misses"]
+    got = [call(lsm), call(inland)]
+    assert api.CACHE_STATS["pipeline_misses"] == misses + 1
+    assert len(api._CACHE) == 1
+    assert seen == [18, 11]
+    assert static_ring_bound(4, Params()) < 11
+    for land, out in zip((lsm, inland), got):
+        api.clear_exec_cache()
+        fresh = call(land)
+        assert out[0] == fresh[0]
+        for a, b in zip(out[1:5], fresh[1:5]):
+            np.testing.assert_array_equal(a, b)
+        for key in fresh[5]:
+            np.testing.assert_array_equal(out[5][key], fresh[5][key])
 
 
 def _port_cdist(lsm, ci0, lon, lat):
@@ -198,15 +262,18 @@ def _port_cdist(lsm, ci0, lon, lat):
 
 
 @pytest.mark.parametrize("name", ["80x96", "48x256"])
-def test_ring_radius_matches_host_on_large_nn_worlds(name):
+def test_ring_radius_matches_host_on_large_nn_worlds(name, monkeypatch):
     from tests.test_torch_large_nn import world
     lsm, *_, ci, lat, lon = world(name)
     pipe, cdist = _port_cdist(lsm, ci[0], lon, lat)
-    got = api.ring_radius(cdist, pipe.params, pipe.k)
-    assert got == required_ring_radius_host(cdist.numpy(), MAXDIST)
+    assert ring_bound(cdist, pipe.k, pipe.params) == _bound(
+        cdist, pipe.k, pipe.params)
+    assert _probed(monkeypatch, cdist, pipe.k, pipe.params) == (
+        required_ring_radius_host(cdist.numpy(), MAXDIST)
+        + pipe.params.ring_search_margin)
 
 
-def test_ring_radius_matches_host_on_the_london_cut():
+def test_ring_radius_matches_host_on_the_london_cut(monkeypatch):
     from portbench import world
     from tests.test_torch_subkm_config import CUT_H, CUT_W, _grid
     lon, lat = _grid(CUT_H, CUT_W)
@@ -215,5 +282,8 @@ def test_ring_radius_matches_host_on_the_london_cut():
                                  world.generator(2**31 + 2**20 + 3, cpu), cpu)
     pipe, cdist = _port_cdist(lsm.numpy(), None, lon, lat)
     assert pipe.k == 462
-    got = api.ring_radius(cdist, pipe.params, pipe.k)
-    assert got == required_ring_radius_host(cdist.numpy(), MAXDIST)
+    assert ring_bound(cdist, pipe.k, pipe.params) == _bound(
+        cdist, pipe.k, pipe.params)
+    assert _probed(monkeypatch, cdist, pipe.k, pipe.params) == (
+        required_ring_radius_host(cdist.numpy(), MAXDIST)
+        + pipe.params.ring_search_margin)

@@ -113,7 +113,7 @@ def test_sharded_matches_jax_and_single_device(small_case, mesh_shape):
     c = small_case
     jsp, (j_state, j_out) = _jax_run(c, mesh_shape)
     sp = _port(c, mesh_shape)
-    assert sp.overlap == jsp.overlap
+    assert sp.overlapped() == jsp.overlap
     got_state, got_out = _port_run(sp, c)
     _assert_outputs_close(got_out, j_out)
     _assert_state_close(got_state, j_state)
@@ -154,18 +154,20 @@ def test_sharded_overlap_matches_basic(small_case):
 
 
 def test_halo_width_guard(small_case):
-    """A mesh whose shard is narrower than the widest halo is refused up
-    front, by both packages."""
+    """A mesh whose shard is narrower than the widest halo is refused
+    before any work, by both packages: the JAX package's at construction,
+    the port's by the run at its NN."""
     c = small_case
     jpipe = JPipe(JGrid(lon=c["lon"], lat=c["lat"]), ring_nn=50)
     with pytest.raises(ValueError, match="halo width"):
         JSharded(jpipe, jmake_mesh((8, 1)))
-    pipe = TriggerPipeline(Grid(lon=c["lon"], lat=c["lat"]), ring_nn=50,
-                           device="cpu")
-    with pytest.raises(ValueError, match="halo width"):
-        ShardedPipeline(pipe, make_mesh((8, 1), "cpu"))
-    with pytest.raises(ValueError, match="halo width"):
-        ShardedPipeline(pipe, make_mesh((1, 8), "cpu"), overlap=True)
+    pipe = TriggerPipeline(Grid(lon=c["lon"], lat=c["lat"]), device="cpu")
+    state = TriggerState.zeros(c["lsm"].shape, "cpu")
+    *xs, ci = _inputs(c)
+    for shape, kw in (((8, 1), {}), ((1, 8), {"overlap": True})):
+        sp = ShardedPipeline(pipe, make_mesh(shape, "cpu"), **kw)
+        with pytest.raises(ValueError, match="halo width"):
+            sp.run(state, *xs, ci_t=ci, nn=50)
     with pytest.raises(ValueError, match="not divisible"):
         ShardedPipeline(pipe, make_mesh((1, 7), "cpu"))
 
@@ -198,7 +200,7 @@ def test_sharded_3d_pressure(small_case):
         _, (j_state, j_out) = _jax_run(c, mesh_shape, overlap=overlap,
                                        pres=p3)
         sp = _port(c, mesh_shape, overlap=overlap)
-        assert sp.overlap is (overlap == "auto")
+        assert sp.overlapped() is (overlap == "auto")
         got_state, got_out = _port_run(sp, c, pres=p3)
         _assert_outputs_close(got_out, j_out)
         _assert_state_close(got_state, j_state)
@@ -237,7 +239,7 @@ def test_sharded_clean_periodic_mode(small_case):
     _, (j_state, j_out) = _jax_run(
         c, (2, 4), params=JParams(exact_lon_indexing=False))
     sp = _port(c, (2, 4), params=Params(exact_lon_indexing=False))
-    assert sp.overlap
+    assert sp.overlapped()
     got_state, got_out = _port_run(sp, c)
     _assert_outputs_close(got_out, j_out)
     _assert_state_close(got_state, j_state)
@@ -253,7 +255,7 @@ def test_kernel_path_on_cpu_equals_plain_path(small_case, mesh_shape):
     c = small_case
     kern = _port(c, mesh_shape, use_kernels=True)
     plain = _port(c, mesh_shape, use_kernels=False)
-    assert kern.overlap is (mesh_shape == (2, 4))
+    assert kern.overlapped() is (mesh_shape == (2, 4))
     assert (kern.halo_backend, plain.halo_backend) == ("kernel", "plain")
     assert (kern.distance_impl, plain.distance_impl) == ("auto", "plain")
     runs = [_port_run(sp, c) for sp in (kern, plain)]

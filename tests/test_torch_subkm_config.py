@@ -16,10 +16,12 @@ import torch
 from portbench import compare, harness, world
 from portbench.reference import trigger as ref
 from portbench.trace import Window
+from seabreeze_param_tpu.ops.ring_search import required_ring_radius_host
 from seabreeze_param_tpu_torch import api
 from seabreeze_param_tpu_torch.core.params import Params
-from seabreeze_param_tpu_torch.ops.ring_search import (
-    required_ring_radius_host)
+from seabreeze_param_tpu_torch.models.pipeline import TriggerPipeline
+from seabreeze_param_tpu_torch.ops.ring_search import (ring_bound,
+                                                        static_ring_bound)
 from seabreeze_param_tpu_torch.utils import tracing
 
 CELL = "um_london_333m.diag_noice"
@@ -74,7 +76,7 @@ def test_config_grid_is_0p003_deg_and_k_462():
             harness.HERE / "configs" / "era5_025.json")["pres_hpa"]]
 
 
-def test_cut_diag_matches_reference(quiet_tracer):
+def test_cut_diag_matches_reference(quiet_tracer, monkeypatch):
     """A 64 x 512 cut, 4 steps, 4 levels, no sea ice, from a seed: the
     port's ``api.diag`` (the plain path here; the large builds on the card)
     against the plain reference, judged at the cell's limits, with the
@@ -88,6 +90,12 @@ def test_cut_diag_matches_reference(quiet_tracer):
     u, v = (world.noise((CUT_T, len(CUT_LEVELS), CUT_H, CUT_W), 6.0, 0.0,
                         g, cpu) for _ in range(2))
     params = CONFIG["params"]
+    seen, real = [], TriggerPipeline.run
+
+    def run(self, *args, nn=None, **kwargs):
+        seen.append(nn)
+        return real(self, *args, nn=nn, **kwargs)
+    monkeypatch.setattr(TriggerPipeline, "run", run)
     quiet_tracer.enabled = True
     tt, sb, thc, ws, wd = api.diag(
         1, lsm.numpy(), z.numpy(), std.numpy(), lon, lat, pres.numpy(),
@@ -110,7 +118,7 @@ def test_cut_diag_matches_reference(quiet_tracer):
     assert bool((np.abs(sb) < 1e20).all())
 
     # the call ran at NN >= k + 2 + margin = 466: the large builds' range
-    nn = next(v for key, v in api._CACHE.items() if key[-1] == "ring_nn")
+    [nn] = seen
     assert 466 <= nn <= 2047
     assert nn >= max(int(r.max()) for r in work["radii"])
     # one pass of the probe, its cap the whole domain (min(512, 4k))
@@ -136,12 +144,14 @@ def test_probe_span_and_frame_counter_each_pass(quiet_tracer):
     cdist = _far_sea()
     params = Params()
     quiet_tracer.enabled = True
-    got = api.ring_radius(cdist, params, k=1)
+    got = ring_bound(cdist, 1, params)
     quiet_tracer.enabled = False
     # caps 8, 16, 32, 64: the first result below its cap ends the passes
-    assert got == required_ring_radius_host(
+    probed = required_ring_radius_host(
         cdist, params.maxdist, exact_lon=params.exact_lon_indexing)
-    assert 32 <= got < 64
+    assert got == max(static_ring_bound(1, params),
+                      probed + params.ring_search_margin)
+    assert 32 <= probed < 64 and got == probed + params.ring_search_margin
     assert quiet_tracer.records["probe:transform"].calls == 4
     assert quiet_tracer.counters["probe_frame_cells"] == _frames(
         10, 100, (8, 16, 32, 64))
@@ -151,7 +161,7 @@ def test_probe_span_and_counters_under_a_profiler(quiet_tracer):
     cdist = _far_sea()
     with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
-        api.ring_radius(cdist, Params(), k=1)
+        ring_bound(cdist, 1, Params())
     names = [e.name() for e in prof.profiler.kineto_results.events()]
     assert names.count("probe:transform") == 4
     assert quiet_tracer.counters["probe_frame_cells"] == _frames(
@@ -179,7 +189,7 @@ def test_probe_span_and_counters_off_without_a_reader(quiet_tracer,
         return real(name, *args, **kwargs)
     monkeypatch.setattr(torch.profiler, "record_function", counting)
     assert quiet_tracer.hook("probe:transform") is tracing._OFF
-    api.ring_radius(_far_sea(), Params(), k=1)
+    ring_bound(_far_sea(), 1, Params())
     _small_diag()
     assert entered == []
     assert not quiet_tracer.counters and not quiet_tracer.records

@@ -175,10 +175,11 @@ def profile_resident(world, top=15, sharded=False, wide=False,
 
 def breakdown(world):
     import torch
-    from seabreeze_param_tpu_torch.api import diag, ring_radius
+    from seabreeze_param_tpu_torch.api import diag
     from seabreeze_param_tpu_torch.core.params import Params
     from seabreeze_param_tpu_torch.core.state import TriggerState
     from seabreeze_param_tpu_torch.models.pipeline import TriggerPipeline
+    from seabreeze_param_tpu_torch.ops.ring_search import ring_bound
 
     grid, (lsm, z, std, pres, theta, u, v, ci) = world
     dev = torch.device("cuda")
@@ -204,7 +205,7 @@ def breakdown(world):
         lambda: pipe.distance_field(lsm_d, ci0))
     cd0 = pipe.distance_field(lsm_d, ci0)
     parts["probe passes on the card"] = wall_ms(
-        lambda: ring_radius(cd0, Params(), pipe.k))
+        lambda: ring_bound(cd0, pipe.k, Params()))
 
     d = [torch.as_tensor(a, device=dev)
          for a in (theta, u, v, lsm, z, std, pres, ci)]

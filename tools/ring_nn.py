@@ -2,8 +2,8 @@
 
 For each world, prints the distance radius k, the static bound
 ``TriggerPipeline.nn_max`` (k + 2 + margin) and the NN that ``diag``
-takes (``api.needed_ring_nn``): the larger of that bound and the radius
-probed on the first step's distance field plus the margin.  The
+takes (``ops.ring_search.ring_bound``): the larger of that bound and the
+radius probed on the first step's distance field plus the margin.  The
 ring kernels (``csrc/ring_trigger.cu``) refuse an NN above their widest
 radius, so this says whether ``diag`` runs on the card at a given spacing.
 The fields are ``bench.make_world``'s (seed 3), as in ``chip_smoke.py``.
@@ -24,11 +24,11 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 
 from bench import make_world  # noqa: E402
-from seabreeze_param_tpu_torch.api import needed_ring_nn  # noqa: E402
 from seabreeze_param_tpu_torch.core.grid import Grid  # noqa: E402
 from seabreeze_param_tpu_torch.core.params import Params  # noqa: E402
 from seabreeze_param_tpu_torch.models.pipeline import (  # noqa: E402
     TriggerPipeline)
+from seabreeze_param_tpu_torch.ops.ring_search import ring_bound  # noqa: E402
 
 #: (nlat, nlon, spacing in degrees, northern edge in degrees N): the
 #: 1.5 km world of chip_smoke.py's fine phase, a 1 km world at 45-54 N,
@@ -47,7 +47,7 @@ def diag_nn(nlat: int, nlon: int, spacing: float, lat0: float):
     pipe = TriggerPipeline(grid, Params(), device="cpu", use_kernels=False)
     cd0 = pipe.distance_field(torch.as_tensor(lsm),
                               torch.as_tensor(ci[0])).numpy()
-    return pipe.k, pipe.nn_max, needed_ring_nn(pipe, cd0)
+    return pipe.k, pipe.nn_max, ring_bound(cd0, pipe.k, pipe.params)
 
 
 def main(argv=None):
