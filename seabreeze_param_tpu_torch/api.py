@@ -38,6 +38,14 @@ is picked per column, and every level moves.
 Each call runs at the ring radius NN that :func:`ops.ring_search.
 ring_bound` gives on its first step's distance field: the static bound
 k + 2 + margin, or the probed radius plus the margin, whichever is larger.
+
+A call in one process, with no mesh, on host arrays and not with
+``use_kernels=False`` moves its arrays through the grid's
+:class:`staging.Stager`, held with its cached pipeline: each step's inputs
+go up while the step before it runs, and each step's ``sb_con`` comes back
+as soon as its step has run (on a CUDA device through pinned slots on a
+copy stream, the host's copies on two worker threads).  Every other call
+moves them as ``models.pipeline._f32`` and ``.cpu()`` do.
 """
 from __future__ import annotations
 
@@ -90,12 +98,17 @@ def _cached_pipeline(key, build):
 
 
 def _fill(ci):
-    """``ci.filled(0)`` for masked arrays (__init__.py:225), else as-is."""
+    """``ci.filled(0)`` for masked arrays (__init__.py:225), else as-is, in
+    its own dtype (the moves cast to float32)."""
     if ci is None:
         return None
     if hasattr(ci, "filled"):
-        return np.asarray(ci.filled(0), np.float32)
-    return np.asarray(ci, np.float32)
+        return np.asarray(ci.filled(0))
+    return np.asarray(ci)
+
+
+def _on_host(a):
+    return not isinstance(a, torch.Tensor) or a.device.type == "cpu"
 
 
 def _run_multihost(pipe, mesh, devices, key, state, t, u, v, lsm, z, std,
@@ -147,6 +160,27 @@ def _run_multihost(pipe, mesh, devices, key, state, t, u, v, lsm, z, std,
         for f in ("thc", "windspeed", "winddir")))
     return final, {k: pdist.gather_rows(o, span, nlat)
                    for k, o in outs.items()}
+
+
+def _run_staged(pipe, stager, state, t, u, v, lsm_d, z, std, pres, ci, nn,
+                sb_con):
+    """``pipe.run`` on host arrays moved through ``stager``: the static
+    fields and the state once, and step by step one (P, nlat, nlon) slice
+    of a device stack holding each step's theta, u and v at the levels
+    read, and ci; each step's ``sb_con`` read back into ``sb_con``.  The
+    state is read back by the caller."""
+    T, L = u.shape[:2]
+    planes = (t, u, v) if ci is None else (t, u, v, ci)
+    stack = torch.empty((T, 1 + 2 * L + (ci is not None)) + t.shape[1:],
+                        dtype=torch.float32, device=stager.device)
+    state_d = TriggerState(state.tt, *(stager.upload(a) for a in (
+        state.thc, state.windspeed, state.winddir)))
+    z, std, pres = (stager.upload(a) for a in (z, std, pres))
+    feed = stager.steps(lambda s: [a[s] for a in planes], stack, sb_con)
+    return pipe.run(state_d, stack[:, 0], stack[:, 1:1 + L],
+                    stack[:, 1 + L:1 + 2 * L], lsm_d, z, std, pres,
+                    ci_t=None if ci is None else stack[:, -1], nn=nn,
+                    feed=feed)
 
 
 def _to_host(t, site: str):
@@ -258,13 +292,23 @@ def diag(tt, lsm, z, std, lon, lat, pres, *args, **kwargs):
         levels = ((slice(lev, lev + 1),) if single
                   else (slice(None), slice(lev, lev + 1)))
 
+    # one process, no decomposition, host arrays, the kernels' path: the
+    # moves go through the grid's staging slots, overlapped with the steps
+    stager = None
+    if (not multihost and mesh is None and use_kernels is not False
+            and all(map(_on_host, (lsm, z, std, state.thc, state.windspeed,
+                                   state.winddir)))):
+        stager = pipe.stager()
+
+    def up(a):
+        return _f32(a, device) if stager is None else stager.upload(a)
+
     # the ring radius from the first step's distance field, measured on
     # the device (every process of a multi-process run measures the same
     # global field)
     with tracer.hook("api:probe"):
-        lsm_d = _f32(lsm, device)
-        ci0 = None if ci is None else _f32(
-            _fill(ci[...] if single else ci[0]), device)
+        lsm_d = up(lsm)
+        ci0 = None if ci is None else up(_fill(ci[...] if single else ci[0]))
         nn = ring_bound(pipe.distance_field(lsm_d, ci0), pipe.k, params)
 
     with tracer.hook("api:run"):
@@ -273,34 +317,47 @@ def diag(tt, lsm, z, std, lon, lat, pres, *args, **kwargs):
                                          state, t, u, v, lsm, z, std, pres,
                                          ci, single, lev, nn)
         else:
-            # only these levels are read from a lazy handle, converted
-            # from big-endian, and moved
-            u = np.asarray(u[levels], np.float32)
-            v = np.asarray(v[levels], np.float32)
-            if lev is not None:
-                # a step's level is contiguous where the whole slice is
-                # not: move the steps one by one, so the host gathers none
-                u, v = (torch.stack([_f32(x, device) for x in a])
-                        for a in (u, v))
-            t = np.asarray(t[...], np.float32)
+            # only these levels are read from a lazy handle and moved
+            u, v = np.asarray(u[levels]), np.asarray(v[levels])
+            t = np.asarray(t[...])
             ci = _fill(None if ci is None else ci[...])
             if single:
                 u, v, t = u[None], v[None], t[None]
                 if ci is not None:
                     ci = ci[None]
-            if mesh is not None:
-                from .parallel.sharded import ShardedPipeline
-                run_pipe = pipe
-                pipe = _cached_pipeline(
-                    key + ("sharded", mesh.shape, mesh.devices),
-                    lambda: ShardedPipeline(run_pipe, mesh))
-            final, outs = pipe.run(state, t, u, v, lsm_d, z, std, pres,
-                                   ci_t=ci, nn=nn)
+            if stager is not None:
+                sb_con = np.empty((T, nlat, nlon), np.float32)
+                final, outs = _run_staged(pipe, stager, state, t, u, v, lsm_d,
+                                          z, std, pres, ci, nn, sb_con)
+            else:
+                u, v, t = (np.asarray(a, np.float32) for a in (u, v, t))
+                if lev is not None:
+                    # a step's level is contiguous where the whole slice
+                    # is not: move the steps one by one, so the host
+                    # gathers none
+                    u, v = (torch.stack([_f32(x, device) for x in a])
+                            for a in (u, v))
+                if mesh is not None:
+                    from .parallel.sharded import ShardedPipeline
+                    run_pipe = pipe
+                    pipe = _cached_pipeline(
+                        key + ("sharded", mesh.shape, mesh.devices),
+                        lambda: ShardedPipeline(run_pipe, mesh))
+                final, outs = pipe.run(state, t, u, v, lsm_d, z, std, pres,
+                                       ci_t=ci, nn=nn)
     with tracer.hook("api:outputs"):
-        thc_o, ws_o, wd_o = (_to_host(a, "state_readback") for a in (
-            final.thc, final.windspeed, final.winddir))
-        ret = (tt + T, _to_host(outs["sb_con"], "output_readback"), thc_o,
-               ws_o, wd_o)
+        state_d = (final.thc, final.windspeed, final.winddir)
+        if stager is None:
+            thc_o, ws_o, wd_o = (_to_host(a, "state_readback")
+                                 for a in state_d)
+            ret = (tt + T, _to_host(outs["sb_con"], "output_readback"),
+                   thc_o, ws_o, wd_o)
+        else:
+            ret = (tt + T, sb_con) + tuple(
+                np.empty((nlat, nlon), np.float32) for _ in state_d)
+            for a, o in zip(state_d, ret[2:]):
+                stager.get(a, o, "state_readback")
+            stager.finish()
         if full_output:
             return ret + ({k: _to_host(o, "output_readback")
                            for k, o in outs.items()},)

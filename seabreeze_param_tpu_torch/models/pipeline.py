@@ -27,6 +27,7 @@ from ..ops.distance import coast_distance, device_tables, effective_radius
 from ..ops.orography import sigmoid_weight
 from ..ops.ring_search import static_ring_bound
 from ..ops.trigger import trigger_step, trigger_step_stacked
+from ..staging import Stager
 from ..utils.tracing import tracer as _default_tracer
 
 
@@ -104,6 +105,16 @@ class TriggerPipeline:
             object.__setattr__(self, "_tabs", tabs)
         return tabs
 
+    def stager(self):
+        """The host staging slots and copy stream of ``api.diag``'s moves
+        to this pipeline's device (:class:`staging.Stager`), built at
+        first use and held with the pipeline."""
+        st = getattr(self, "_stager", None)
+        if st is None:
+            st = Stager(self.device, (len(self.grid.lat), len(self.grid.lon)))
+            object.__setattr__(self, "_stager", st)
+        return st
+
     def distance_from_coast(self, coast, lsm):
         """Signed coast distance from a coastline field, through the
         pipeline's cached tables, its ``distance_impl`` and its
@@ -138,7 +149,7 @@ class TriggerPipeline:
                             smod=smod, use_kernels=self.kernels)
 
     def run(self, state: TriggerState, theta_t, u_t, v_t, lsm, z, std, pres,
-            ci_t=None, *, nn=None):
+            ci_t=None, *, nn=None, feed=None):
         """Loop over the leading time axis at ring radius ``nn`` (None:
         :attr:`nn_max`; ``ops.ring_search.ring_bound`` gives the one a run
         needs).
@@ -147,7 +158,11 @@ class TriggerPipeline:
         ci_t : (T, nlat, nlon) or None (then the distance field is computed
         once, the reference's ci=None branch).  Arrays or tensors; they are
         moved to the pipeline's device as float32.  ``state`` is not
-        modified.
+        modified.  ``feed`` — the staged moves of ``api.diag``
+        (``staging.Stager.steps``), whose device stacks the time-varying
+        inputs are: ``feed.ready(t)`` before step t, ``feed.done(t,
+        sb_con[t])`` once step t is enqueued (slot t of the stacks is final
+        then).
 
         Returns ``(final_state, outputs)``, outputs a dict of (T, nlat,
         nlon) tensors ``sb_con``, ``t0``, ``windspeed``, ``winddir``.
@@ -177,6 +192,8 @@ class TriggerPipeline:
 
         for t in range(T):
             with _default_tracer.hook("pipeline:step"):
+                if feed is not None:
+                    feed.ready(t)
                 if ci_t is not None:
                     cdist = self.distance_field(lsm, ci_t[t])
                 step = (theta_t[t], u_t[t], v_t[t], cdist, z, std, pres,
@@ -190,5 +207,7 @@ class TriggerPipeline:
                                            use_kernels=False)
                     sb_b[t], t0s[t] = out["sb_con"], out["t0"]
                     ws_b[t], wd_b[t] = out["windspeed"], out["winddir"]
+                if feed is not None:
+                    feed.done(t, sb_b[t])
         return st, {"sb_con": sb_b, "t0": t0s, "windspeed": ws_b,
                     "winddir": wd_b}

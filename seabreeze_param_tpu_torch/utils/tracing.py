@@ -24,9 +24,10 @@ Labels are ``layer:phase`` (``api:probe``, ``pipeline:step``,
 statement at which the host waits for the device (a read-back, or the
 upload of a pageable host array between launches).  :meth:`Tracer.count`
 adds to a named counter (``h2d_bytes``: the bytes of host arrays the port
-takes onto its device; ``probe_frame_cells``: the cells of each frame the
-ring-radius probe's passes walk, under the span ``probe:transform``) under
-the same switch.
+takes onto its device; ``staged_bytes``: the float32 bytes ``api.diag``
+moves through its staging slots, both ways (``staging.Stager``);
+``probe_frame_cells``: the cells of each frame the ring-radius probe's
+passes walk, under the span ``probe:transform``) under the same switch.
 
 Also here: :func:`device_info`, the counterpart of the reference's
 ``get_threads`` (``sobel.f90:195-206``).

@@ -711,6 +711,99 @@ def test_diag_kernel_path_matches_plain_path(name, dev):
     np.testing.assert_array_equal(kern[4], plain[4])
 
 
+#: steps of a staged call: more than the staging ring's slots
+STAGED_T = 7
+
+
+def _staged_world(pres3):
+    grid, (lsm, z, std, pres, theta, u, v, ci) = _world("regional64",
+                                                        nt=STAGED_T)
+    u = u + np.arange(u.shape[1], dtype=np.float32)[None, :, None, None]
+    ci[3:, 8:12] = 0.9                       # the coastline moves again
+    if pres3:
+        col = 1.0 + 0.02 * np.sin(np.arange(lsm.size, dtype=np.float32))
+        pres = (pres[:, None, None] * col.reshape(lsm.shape)).astype(
+            np.float32)
+    return grid, (lsm, z, std, pres, theta, u, v, ci)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pres3", [False, True], ids=["pres1d", "pres3d"])
+@pytest.mark.parametrize("ice", [True, False], ids=["ice", "noice"])
+def test_staged_diag_bit_equal_to_unstaged_moves(ice, pres3, dev,
+                                                  monkeypatch):
+    """``diag`` through the staging slots and copy stream, two calls of
+    7 steps (more than the ring's slots) with the state carried: bit-equal
+    to the same pipeline run on device tensors moved without staging and
+    read back with ``.cpu()``; the first call's arrays unchanged by the
+    second."""
+    from seabreeze_param_tpu_torch import api
+    from seabreeze_param_tpu_torch.ops.trigger import nearest_level
+    api.clear_exec_cache()
+    grid, (lsm, z, std, pres, theta, u, v, ci) = _staged_world(pres3)
+    ci = ci if ice else None
+    seen, real = [], TriggerPipeline.run
+
+    def run(self, *a, **kw):
+        seen.append((self, kw["nn"], kw["feed"]))
+        return real(self, *a, **kw)
+    monkeypatch.setattr(TriggerPipeline, "run", run)
+    args = (lsm, z, std, grid.lon, grid.lat, pres, u, v, theta, ci)
+    first = diag(1, *args, device=dev)
+    kept = [a.copy() for a in first[1:]]
+    second = diag(first[0], *args, ws=first[3], wd=first[4], thc=first[2],
+                  device=dev)
+    assert len(seen) == 2 and all(f is not None for *_, f in seen)
+    for a, b in zip(first[1:], kept):
+        np.testing.assert_array_equal(a, b)
+
+    if not pres3:                            # the one level diag moves
+        lev = int(nearest_level(torch.tensor(pres),
+                                Params().target_plev_pa))
+        u, v, pres = u[:, lev:lev + 1], v[:, lev:lev + 1], pres[lev:lev + 1]
+
+    def d(a):
+        return None if a is None else torch.as_tensor(
+            np.ascontiguousarray(a), device=dev)
+    zero = torch.zeros(lsm.shape, device=dev)
+    state = TriggerState(1, zero, zero, zero)
+    for (pipe, nn, _), got in zip(seen, (first, second)):
+        state, outs = real(pipe, state, d(theta), d(u), d(v), d(lsm), d(z),
+                           d(std), d(pres), ci_t=d(ci), nn=nn)
+        assert got[0] == state.tt
+        for have, want in zip(got[1:], (outs["sb_con"], state.thc,
+                                        state.windspeed, state.winddir)):
+            np.testing.assert_array_equal(have, want.cpu().numpy())
+
+
+@pytest.mark.cuda
+def test_staged_pinned_memory_bounded(dev):
+    """20 calls whose answers the caller keeps: the stager's pinned slots,
+    and the pinned memory torch has allocated, stay as after the first
+    two calls.  (Its ``active_bytes`` rise by a few bytes a call
+    on the unstaged path as well: not the stager's.)"""
+    from seabreeze_param_tpu_torch import api, staging
+    api.clear_exec_cache()
+    grid, (lsm, z, std, pres, theta, u, v, ci) = _staged_world(False)
+    args = (lsm, z, std, grid.lon, grid.lat, pres, u, v, theta, ci)
+    kept = [diag(1, *args, device=dev) for _ in range(2)]
+    stager = next(iter(api._CACHE.values())).stager()
+    held = stager.host_bytes
+    plane = lsm.size * 4
+    assert held == staging.SLOTS * (4 + 1) * plane
+    assert all(s.buf.is_pinned() for s in stager._in + stager._out)
+
+    def pinned():
+        return torch.cuda.host_memory_stats()["allocated_bytes.current"]
+    before = pinned()
+    kept += [diag(1, *args, device=dev) for _ in range(20)]
+    assert stager.host_bytes == held
+    assert held <= before and pinned() == before
+    for got in kept[1:]:
+        for a, b in zip(got[1:], kept[0][1:]):
+            np.testing.assert_array_equal(a, b)
+
+
 @pytest.mark.cuda
 def test_wrappers_reject_bad_tensors(dev):
     Mmin = torch.zeros((20, 16), device=dev)

@@ -69,11 +69,11 @@ def _spy(monkeypatch, cls):
     seen, real = {}, cls.run
 
     def run(self, state, theta_t, u_t, v_t, lsm, z, std, pres, ci_t=None,
-            nn=None):
+            nn=None, **feed):
         seen.update(pipe=self, state=state, theta=theta_t, u=u_t, v=v_t,
                     lsm=lsm, z=z, std=std, pres=pres, ci=ci_t, nn=nn)
         return real(self, state, theta_t, u_t, v_t, lsm, z, std, pres,
-                    ci_t=ci_t, nn=nn)
+                    ci_t=ci_t, nn=nn, **feed)
     monkeypatch.setattr(cls, "run", run)
     return seen, real
 

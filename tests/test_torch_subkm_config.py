@@ -198,7 +198,7 @@ def test_probe_span_and_counters_off_without_a_reader(quiet_tracer,
 #: The per-layer metrics a traced run of the cell reports: every diag
 #: metric of ``era5_025.diag_ice`` but B3's roofline (its all-taps bound
 #: sits too close under the large build's time to stay below 100%), and
-#: the probe's two.
+#: the probe's two, and the bytes through the staging slots.
 CELL_METRICS = {
     "copy_ms_per_step.diag": True, "launches_per_step.diag": True,
     "torch_ops_ms_per_step.diag": True, "ring_roofline.diag": True,
@@ -207,6 +207,7 @@ CELL_METRICS = {
     "host_waits_per_step.diag": True, "program_idle_share.diag": True,
     "probe_transform_ms_per_step.diag": True,
     "probe_frame_mcells_per_step.diag": True,
+    "staged_mb_per_step.diag": True,
 }
 
 
